@@ -1,0 +1,13 @@
+"""Communication-layer algorithms: modulation, sources, metrics
+(port of ``opticommpy_tpu/comm``)."""
+
+from opticommpy_torch.comm import metrics, modulation, sources  # noqa: F401
+from opticommpy_torch.comm.modulation import (  # noqa: F401
+    bit_map,
+    demap,
+    demodulate_gray,
+    gray_code,
+    gray_mapping,
+    min_euclid,
+    modulate_gray,
+)

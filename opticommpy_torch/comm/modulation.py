@@ -1,0 +1,162 @@
+"""Digital modulation: constellations, Gray mapping, (de)mapping.
+
+Port of ``opticommpy_tpu/comm/modulation.py``. Constellation generation is
+the same host NumPy code; the per-symbol operations run on tensors.
+"""
+
+import numpy as np
+import torch
+
+__all__ = [
+    "gray_code",
+    "gray_mapping",
+    "pam_const",
+    "qam_const",
+    "psk_const",
+    "apsk_const",
+    "bit_map",
+    "min_euclid",
+    "demap",
+    "modulate_gray",
+    "demodulate_gray",
+]
+
+
+# ---------------------------------------------------------------------------
+# Constellation generation (host-side NumPy, offline)
+# ---------------------------------------------------------------------------
+
+
+def gray_code(n):
+    """n-bit Gray code as integer array: g(i) = i ^ (i >> 1)."""
+    i = np.arange(1 << n)
+    return i ^ (i >> 1)
+
+
+def pam_const(M):
+    """M-PAM levels {-(M-1), ..., -1, 1, ..., M-1} (modulation.py:121)."""
+    L = M - 1
+    return np.arange(-L, L + 1, 2).astype(np.float32)
+
+
+def qam_const(M):
+    """Square M-QAM grid with serpentine row ordering (modulation.py:143)."""
+    L = int(np.sqrt(M)) - 1
+    pam = np.arange(-L, L + 1, 2)
+    grid = np.tile(pam, (L + 1, 1))
+    const = grid + 1j * np.flipud(grid.T)
+    for row in range(1, L + 1, 2):
+        const[row] = const[row][::-1]
+    return const.astype(np.complex64)
+
+
+def psk_const(M):
+    """M-PSK points on the unit circle (modulation.py:177)."""
+    phases = 2 * np.pi * np.arange(M) / M
+    return np.exp(1j * phases).astype(np.complex64)
+
+
+def apsk_const(M, m1=None, phase_offset=None):
+    """M-APSK multi-ring constellation (modulation.py:200).
+
+    ``m1`` bits index the rings; ring radii follow the Gaussian-quantile rule
+    of Liu et al. (2011); alternate rings are phase-flipped for Gray-ness.
+    """
+    if m1 is None:
+        m1 = {16: 1, 32: 2, 64: 2, 128: 3, 256: 3, 512: 4, 1024: 4}[M]
+    n_rings = 1 << m1
+    m2 = int(np.log2(M)) - m1
+    per_ring = 1 << m2
+    if phase_offset is None:
+        phase_offset = np.pi / per_ring
+    const = np.zeros(M, dtype=np.complex64)
+    for r in range(n_rings):
+        radius = np.sqrt(-np.log(1 - ((r + 1) - 0.5) * per_ring / M))
+        ring = psk_const(per_ring)
+        if (r + 1) % 2 == 1:
+            ring = np.flip(ring)
+        const[r * per_ring : (r + 1) * per_ring] = radius * ring
+    return (const * np.exp(1j * phase_offset)).astype(np.complex64)
+
+
+def gray_mapping(M, const_type):
+    """Constellation ordered by Gray-mapped bit label (modulation.py:64).
+
+    Index ``i`` of the returned array is the symbol whose Gray bit label, read
+    as an integer, equals ``i``.
+    """
+    if const_type == "ook":
+        M = 2
+    bits_per_symbol = int(np.log2(M))
+    code = gray_code(bits_per_symbol)
+    if const_type == "ook":
+        const = np.arange(2).astype(np.float32)
+    elif const_type == "pam":
+        const = pam_const(M)
+    elif const_type == "qam":
+        const = qam_const(M)
+    elif const_type == "psk":
+        const = psk_const(M)
+    elif const_type == "apsk":
+        const = apsk_const(M)
+    else:
+        raise ValueError(f"unknown constellation type: {const_type}")
+    const = const.reshape(-1)
+    # position symbols so that const_out[gray_label] = const[natural_index]
+    order = np.argsort(code)
+    return const[order]
+
+
+def bit_map(M, const_type):
+    """(M, log2(M)) bit labels of :func:`gray_mapping` order (MSB first).
+
+    Row ``i`` of the map is just the binary expansion of ``i`` — by
+    construction of gray_mapping, index == bit label (this is what the
+    reference computes via minEuclid(const, const) + dec2bitarray in
+    demodulateGray, modulation.py:399-403).
+    """
+    b = int(np.log2(M)) if const_type != "ook" else 1
+    idx = np.arange(1 << b)
+    shifts = np.arange(b - 1, -1, -1)
+    return ((idx[:, None] >> shifts[None, :]) & 1).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Per-symbol operations
+# ---------------------------------------------------------------------------
+
+
+def min_euclid(symb, const):
+    """Index of the closest constellation point per symbol (modulation.py:271)."""
+    symb = torch.as_tensor(symb)
+    const = torch.as_tensor(const, device=symb.device)
+    d2 = torch.abs(symb[..., None] - const) ** 2
+    return torch.argmin(d2, dim=-1)
+
+
+def demap(ind_symb, bitmap):
+    """Symbol indices -> interleaved bit sequence (modulation.py:302)."""
+    ind_symb = torch.as_tensor(ind_symb)
+    bits = torch.as_tensor(bitmap, device=ind_symb.device)[ind_symb]
+    return bits.reshape(-1)
+
+
+def modulate_gray(bits, M, const_type):
+    """Bits -> Gray-mapped constellation symbols (modulation.py:334)."""
+    if const_type == "ook":
+        M = 2
+    b = int(np.log2(M))
+    bits = torch.as_tensor(bits)
+    const = torch.as_tensor(gray_mapping(M, const_type), device=bits.device)
+    weights = torch.as_tensor(1 << np.arange(b - 1, -1, -1), device=bits.device)
+    idx = torch.sum(bits.reshape(-1, b).long() * weights, dim=1)
+    return const[idx]
+
+
+def demodulate_gray(symb, M, const_type):
+    """Hard demodulation: minimum-distance + Gray demapping (modulation.py:369)."""
+    if const_type == "ook":
+        M = 2
+    symb = torch.as_tensor(symb)
+    const = torch.as_tensor(gray_mapping(M, const_type), device=symb.device)
+    return demap(min_euclid(symb, const), bit_map(M, const_type))

@@ -1,0 +1,32 @@
+"""Physical models: devices, fiber channel, transmitter (port of
+``opticommpy_tpu/models``)."""
+
+from opticommpy_torch.models import channels, config, devices, tx  # noqa: F401
+from opticommpy_torch.models.channels import manakov_ssf  # noqa: F401
+from opticommpy_torch.models.config import (  # noqa: F401
+    ADCConfig,
+    AWGNConfig,
+    CoherentFrontendConfig,
+    DACConfig,
+    EDFAConfig,
+    IQMConfig,
+    LaserConfig,
+    LinearFiberConfig,
+    MZMConfig,
+    PDMFrontendConfig,
+    PhotodiodeConfig,
+    SSFMConfig,
+)
+from opticommpy_torch.models.devices import (  # noqa: F401
+    balanced_pd,
+    basic_laser_model,
+    coherent_receiver,
+    edfa,
+    iqm,
+    mzm,
+    optical_hybrid_2x4,
+    pbs,
+    pdm_coherent_receiver,
+    photodiode,
+)
+from opticommpy_torch.models.tx import WDMTxConfig, simple_wdm_tx  # noqa: F401

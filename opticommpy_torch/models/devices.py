@@ -1,0 +1,237 @@
+"""Optoelectronic device models: modulators, receivers, amplifiers, laser.
+
+Port of ``opticommpy_tpu/models/devices.py`` (the devices of the coherent
+main path). Stochastic devices take a ``torch.Generator``; with none they
+draw from a generator seeded 0 on the input's device, as the JAX functions
+default to ``PRNGKey(0)``. One generator is passed down a receiver, so its
+draws follow one another in a single stream.
+"""
+
+import math
+
+import scipy.constants as sconst
+import torch
+
+from opticommpy_torch.models.config import (
+    CoherentFrontendConfig,
+    EDFAConfig,
+    IQMConfig,
+    LaserConfig,
+    MZMConfig,
+    PDMFrontendConfig,
+    PhotodiodeConfig,
+)
+from opticommpy_torch.ops.filtering import fir_filter, lowpass_fir
+from opticommpy_torch.ops.modulator import calc_mzm, calc_pm
+from opticommpy_torch.ops.noise import gaussian_complex_noise, gaussian_noise, phase_noise
+from opticommpy_torch.ops.signal import delay_signal, iq_mixing
+from opticommpy_torch.utils.rng import ensure_generator
+from opticommpy_torch.utils.units import dbm2w
+
+__all__ = [
+    "mzm",
+    "iqm",
+    "pbs",
+    "photodiode",
+    "balanced_pd",
+    "optical_hybrid_2x4",
+    "coherent_receiver",
+    "pdm_coherent_receiver",
+    "edfa",
+    "basic_laser_model",
+]
+
+
+def mzm(e_in, u, config: MZMConfig = MZMConfig()):
+    """Mach-Zehnder amplitude modulator (reference devices.py:94)."""
+    return calc_mzm(torch.as_tensor(e_in), config.Vpi, torch.as_tensor(u),
+                    config.Vb, config.ER)
+
+
+def iqm(e_in, u, config: IQMConfig = IQMConfig()):
+    """IQ modulator: two MZMs + 90-degree combiner (reference devices.py:147)."""
+    e_in = torch.as_tensor(e_in)
+    u = torch.as_tensor(u)
+    root2 = math.sqrt(2.0)
+    eo_i = calc_mzm(e_in / root2, config.Vpi, u.real, config.VbI, config.ERI)
+    eo_q = calc_mzm(e_in / root2, config.Vpi, u.imag, config.VbQ, config.ERQ)
+    return eo_i + calc_pm(eo_q, config.Vpi, config.Vphi * torch.ones_like(u.real))
+
+
+def pbs(e, theta=0.0):
+    """Polarization beam splitter with input rotation (reference devices.py:223).
+
+    Accepts (N,) single-pol (second pol empty) or (N, 2) input; returns
+    (Ex, Ey).
+    """
+    e = torch.as_tensor(e)
+    if e.ndim == 1:
+        e = torch.stack([e, torch.zeros_like(e)], dim=1)
+    th = torch.tensor(theta, dtype=torch.float32)
+    c, s = torch.cos(th), torch.sin(th)
+    rot = torch.stack([torch.stack([c, -s]), torch.stack([s, c])]).to(
+        device=e.device, dtype=e.dtype)
+    out = e @ rot
+    return out[:, 0], out[:, 1]
+
+
+def photodiode(e, config: PhotodiodeConfig = None, generator=None):
+    """Pin photodiode with shot/thermal noise, saturation and bandwidth.
+
+    Ideal photocurrent ``R*|E|^2`` (summed over modes for multimode input),
+    then optional saturation, shot noise ``2q(ipd+Id)B``, thermal noise
+    ``4kTB/RL`` and a lowpass FIR response (reference devices.py:289).
+    """
+    if config is None:
+        config = PhotodiodeConfig()
+    e = torch.as_tensor(e)
+    if e.ndim > 1 and e.shape[1] > 1:
+        ipd = config.R * torch.sum(torch.abs(e) ** 2, dim=1)
+    else:
+        ipd = config.R * (e * e.conj()).real
+        if ipd.ndim > 1:
+            ipd = ipd[:, 0]
+    if config.ideal:
+        return ipd
+    fs = config.Fs
+    if fs is None:
+        raise ValueError("Simulation sampling frequency (Fs) not provided.")
+    if fs < 2 * config.B:
+        raise ValueError("Sampling frequency Fs needs to be at least twice of B.")
+    n_taps = config.N + (config.N % 2 == 0)  # force odd
+    if config.currentSaturation:
+        ipd = torch.clamp(ipd, max=config.IpdSat)
+    if config.shotNoise or config.thermalNoise:
+        generator = ensure_generator(generator, ipd.device)
+    if config.shotNoise:
+        var_shot = 2 * sconst.e * (ipd + config.Id) * config.B
+        ipd = ipd + torch.sqrt(fs * var_shot / (2 * config.B)) * torch.randn(
+            ipd.shape, generator=generator, device=generator.device)
+    if config.thermalNoise:
+        var_th = 4 * sconst.k * (config.Tc + 273.15) * config.B / config.RL
+        ipd = ipd + gaussian_noise(generator, ipd.shape, fs * var_th / (2 * config.B))
+    if config.bandwidthLimitation:
+        ipd = fir_filter(lowpass_fir(config.B, fs, n_taps, config.fType), ipd)
+    return ipd
+
+
+def balanced_pd(e1, e2, config: PhotodiodeConfig = None, generator=None):
+    """Balanced photodiode pair: i1 - i2 (reference devices.py:402)."""
+    generator = ensure_generator(generator, torch.as_tensor(e1).device)
+    return photodiode(e1, config, generator) - photodiode(e2, config, generator)
+
+
+def optical_hybrid_2x4(e_s, e_lo):
+    """2x4 90-degree optical hybrid (reference devices.py:462).
+
+    Returns the four output fields as a (4, N) tensor.
+    """
+    e_s = torch.as_tensor(e_s)
+    e_lo = torch.as_tensor(e_lo).to(e_s.device)
+    T = torch.tensor([[0.5, 0.5j, 0.5j, -0.5],
+                      [0.5j, -0.5, 0.5, 0.5j],
+                      [0.5j, 0.5, -0.5j, -0.5],
+                      [-0.5, 0.5j, -0.5, 0.5j]],
+                     dtype=torch.complex64, device=e_s.device)
+    zeros = torch.zeros_like(e_s)
+    e_in = torch.stack([e_s, zeros, zeros, e_lo.to(e_s.dtype)])
+    return T.to(e_in.dtype) @ e_in
+
+
+def coherent_receiver(e_s, e_lo, config_fe: CoherentFrontendConfig = None,
+                      config_pd: PhotodiodeConfig = None, generator=None):
+    """Single-polarization coherent front end (reference devices.py:503).
+
+    Optical hybrid -> two balanced PDs (I and Q) -> IQ impairments.
+    """
+    if config_fe is None:
+        config_fe = CoherentFrontendConfig()
+    fs = config_fe.Fs
+    if config_pd is None:
+        config_pd = PhotodiodeConfig(ideal=True, Fs=fs)
+    e_s = torch.as_tensor(e_s)
+    generator = ensure_generator(generator, e_s.device)
+    eo = optical_hybrid_2x4(e_s, e_lo)
+    s_i = balanced_pd(eo[1, :], eo[0, :], config_pd, generator)
+    s_q = balanced_pd(eo[2, :], eo[3, :], config_pd, generator)
+    return iq_mixing(torch.complex(s_i, s_q), fs, config_fe.ampImb,
+                     config_fe.phaseImb, config_fe.timeSkew)
+
+
+def pdm_coherent_receiver(e_s, e_lo, config_fe: PDMFrontendConfig = None,
+                          config_pd: PhotodiodeConfig = None, generator=None):
+    """Polarization-multiplexed coherent front end (reference devices.py:574).
+
+    Splits signal and LO with PBSs (LO at 45 degrees), applies polarization
+    delay/PDL, and detects each polarization with a single-pol coherent
+    receiver. Returns an (N, 2) tensor [Sx, Sy].
+    """
+    if config_fe is None:
+        config_fe = PDMFrontendConfig()
+    fs = config_fe.Fs
+    if config_pd is None:
+        config_pd = PhotodiodeConfig(ideal=True, Fs=fs)
+    e_s = torch.as_tensor(e_s)
+    generator = ensure_generator(generator, e_s.device)
+    e_lo_x, e_lo_y = pbs(torch.as_tensor(e_lo).to(e_s.device), theta=math.pi / 4)
+    e_s_x, e_s_y = pbs(e_s, theta=config_fe.polRotation)
+    if config_fe.polDelay != 0:
+        e_s_x = delay_signal(e_s_x, -config_fe.polDelay / 2, fs)
+        e_s_y = delay_signal(e_s_y, config_fe.polDelay / 2, fs)
+    if config_fe.pdl != 0:
+        e_s_x = 10 ** (-(config_fe.pdl / 2) / 20) * e_s_x
+        e_s_y = 10 ** ((config_fe.pdl / 2) / 20) * e_s_y
+    fe_x = CoherentFrontendConfig(Fs=fs, phaseImb=config_fe.phaseImbX,
+                                  ampImb=config_fe.ampImbX,
+                                  timeSkew=config_fe.timeSkewX)
+    fe_y = CoherentFrontendConfig(Fs=fs, phaseImb=config_fe.phaseImbY,
+                                  ampImb=config_fe.ampImbY,
+                                  timeSkew=config_fe.timeSkewY)
+    s_x = coherent_receiver(e_s_x, e_lo_x, fe_x, config_pd, generator)
+    s_y = coherent_receiver(e_s_y, e_lo_y, fe_y, config_pd, generator)
+    return torch.stack([s_x, s_y], dim=1)
+
+
+def edfa(e_in, config: EDFAConfig = None, generator=None):
+    """Lumped EDFA: flat gain + additive ASE noise (reference devices.py:671).
+
+    ASE PSD ``N_ase = (G-1) * nsp * h * Fc`` with ``nsp = (G*NF-1)/(2(G-1))``
+    (Essiambre et al. 2010, Eq. 54), over the simulation bandwidth Fs.
+    """
+    if config is None:
+        config = EDFAConfig()
+    if config.Fs is None:
+        raise ValueError("Simulation sampling frequency (Fs) not provided.")
+    if config.G <= 0:
+        raise ValueError("EDFA gain should be a positive scalar")
+    if config.NF < 3:
+        raise ValueError("The minimal EDFA noise figure is 3 dB")
+    e_in = torch.as_tensor(e_in)
+    nf_lin = 10 ** (config.NF / 10)
+    g_lin = 10 ** (config.G / 10)
+    nsp = (g_lin * nf_lin - 1) / (2 * (g_lin - 1))
+    p_noise = (g_lin - 1) * nsp * sconst.h * config.Fc * config.Fs
+    generator = ensure_generator(generator, e_in.device)
+    noise = gaussian_complex_noise(generator, e_in.shape, p_noise)
+    return e_in * math.sqrt(g_lin) + noise
+
+
+def basic_laser_model(config: LaserConfig = None, generator=None, device=None):
+    """CW laser with random-walk phase noise, RIN and frequency offset.
+
+    Parity with reference devices.py:729 (basicLaserModel). The field lands
+    on the generator's device (``device`` when no generator is given).
+    """
+    if config is None:
+        config = LaserConfig()
+    if config.Fs is None:
+        raise ValueError("Simulation sampling frequency (Fs) not provided.")
+    generator = ensure_generator(generator, device)
+    pn = phase_noise(generator, config.lw, config.Ns, 1 / config.Fs)
+    delta_p = gaussian_complex_noise(generator, pn.shape, config.RIN_var)
+    if config.freqShift != 0:
+        k = torch.arange(config.Ns, dtype=torch.float32, device=pn.device)
+        fo = 2 * math.pi * config.freqShift * k / config.Fs
+    else:
+        fo = 0.0
+    return torch.sqrt(dbm2w(config.P) + delta_p) * torch.exp(1j * (fo + pn))

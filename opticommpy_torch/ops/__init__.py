@@ -1,0 +1,49 @@
+"""DSP primitives (port of ``opticommpy_tpu/ops``): filtering, noise,
+modulator transfer functions and signal conditioning."""
+
+from opticommpy_torch.ops.filtering import (
+    fir_filter,
+    lowpass_fir,
+    overlap_save,
+    pulse_shape,
+    rc_taps,
+    rrc_taps,
+)
+from opticommpy_torch.ops.modulator import calc_mzm, calc_pm
+from opticommpy_torch.ops.noise import (
+    gaussian_complex_noise,
+    gaussian_noise,
+    phase_noise,
+)
+from opticommpy_torch.ops.signal import (
+    decimate,
+    delay_signal,
+    finddelay,
+    iq_mixing,
+    pnorm,
+    sig_pow,
+    symbol_sync,
+    upsample,
+)
+
+__all__ = [
+    "fir_filter",
+    "lowpass_fir",
+    "overlap_save",
+    "pulse_shape",
+    "rc_taps",
+    "rrc_taps",
+    "calc_mzm",
+    "calc_pm",
+    "gaussian_complex_noise",
+    "gaussian_noise",
+    "phase_noise",
+    "decimate",
+    "delay_signal",
+    "finddelay",
+    "iq_mixing",
+    "pnorm",
+    "sig_pow",
+    "symbol_sync",
+    "upsample",
+]

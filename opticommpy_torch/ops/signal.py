@@ -1,0 +1,190 @@
+"""Signal conditioning primitives: power/normalization, resampling, sync.
+
+Port of ``opticommpy_tpu/ops/signal.py``. Signals are (N,) or (N, modes)
+tensors with time on axis 0; every function works on all modes at once
+and keeps the input's device.
+"""
+
+import cmath
+import math
+
+import torch
+
+__all__ = [
+    "sig_pow",
+    "pnorm",
+    "upsample",
+    "decimate",
+    "finddelay",
+    "symbol_sync",
+    "delay_signal",
+    "iq_mixing",
+]
+
+
+def fftfreq(n, d=1.0, dtype=torch.float32, device=None):
+    """``jnp.fft.fftfreq``: integer bins divided by ``n*d`` in ``dtype``.
+
+    ``torch.fft.fftfreq`` multiplies by the reciprocal instead, which rounds
+    differently; the port keeps the JAX package's grid.
+    """
+    k = torch.cat([torch.arange(0, (n - 1) // 2 + 1, device=device),
+                   torch.arange(-(n // 2), 0, device=device)]).to(dtype)
+    return k / torch.tensor(d * n, dtype=dtype, device=device)
+
+
+def _power(x):
+    return (x * x.conj()).real if x.is_complex() else x * x
+
+
+def sig_pow(x):
+    """Average power ``mean(|x|^2)`` over all elements (core.py:50)."""
+    return torch.mean(torch.abs(torch.as_tensor(x)) ** 2)
+
+
+def pnorm(x):
+    """Normalize ``x`` to unit average power (global mean, core.py:701)."""
+    x = torch.as_tensor(x)
+    return x / torch.sqrt(torch.mean(_power(x)))
+
+
+def upsample(x, factor):
+    """Insert ``factor-1`` zeros between samples along axis 0 (core.py:395)."""
+    x = torch.as_tensor(x)
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    n, m = x.shape
+    up = torch.zeros((n, factor, m), dtype=x.dtype, device=x.device)
+    up[:, 0, :] = x
+    up = up.reshape(n * factor, m)
+    return up[:, 0] if squeeze else up
+
+
+def _roll_columns(x, shifts):
+    """Roll column k of (N, M) ``x`` by ``-shifts[k]`` (``jnp.roll(col, -d)``)."""
+    n = x.shape[0]
+    idx = (torch.arange(n, device=x.device)[:, None]
+           + shifts.to(x.device)[None, :]) % n
+    return torch.gather(x, 0, idx)
+
+
+def decimate(x, sps_in, sps_out=1):
+    """Decimate with max-variance sampling-phase selection (core.py:435).
+
+    For each mode, picks the sampling phase with maximum variance, rolls the
+    signal there, then keeps every ``sps_in // sps_out``-th sample.
+    """
+    x = torch.as_tensor(x)
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    dec = sps_in // sps_out
+    n, m = x.shape
+    n_sym = n // sps_in
+    blocks = x[: n_sym * sps_in].reshape(n_sym, sps_in, m)
+    centered = blocks - blocks.mean(dim=0, keepdim=True)
+    phase_var = _power(centered).mean(dim=0)  # (sps_in, m)
+    delays = torch.argmax(phase_var, dim=0)
+    y = _roll_columns(x, delays)[::dec, :]
+    return y[:, 0] if squeeze else y
+
+
+def _xcorr_full(a, v):
+    """np.correlate(a, v, mode='full') via FFT: length len(a)+len(v)-1."""
+    n, m = a.shape[0], v.shape[0]
+    nfft = 1 << int(math.ceil(math.log2(n + m - 1)))
+    A = torch.fft.fft(a, n=nfft)
+    V = torch.fft.fft(torch.flip(v, [0]).conj(), n=nfft)
+    c = torch.fft.ifft(A * V)[: n + m - 1]
+    if not (a.is_complex() or v.is_complex()):
+        c = c.real
+    return c
+
+
+def finddelay(x, y):
+    """Delay between x and y via FFT cross-correlation argmax (core.py:678)."""
+    x, y = torch.as_tensor(x), torch.as_tensor(y)
+    xcorr = torch.abs(_xcorr_full(x, y))
+    return torch.argmax(xcorr) - x.shape[0] + 1
+
+
+def symbol_sync(rx, tx, sps, mode="amp"):
+    """Align the transmitted sequence to the received one (core.py:552).
+
+    Decimates ``rx`` to 1 SpS, resolves mode swaps from the cross-correlation
+    of centered amplitudes, then rolls out the per-mode delays. Returns the
+    synchronized transmit sequence.
+    """
+    if mode != "amp":
+        raise NotImplementedError(
+            f"symbol_sync mode={mode!r} is not ported yet (ROADMAP.md queue 1, "
+            "item 2); mode='amp' is")
+    rx, tx = torch.as_tensor(rx), torch.as_tensor(tx)
+    squeeze = rx.ndim == 1
+    if squeeze:
+        rx = rx[:, None]
+    if tx.ndim == 1:
+        tx = tx[:, None]
+    n_modes = rx.shape[1]
+    if sps > 1:
+        rx = decimate(rx, sps, 1)
+
+    def centered_abs(z):
+        a = torch.abs(z)
+        return a - a.mean(dim=0, keepdim=True)
+
+    atx, arx = centered_abs(tx), centered_abs(rx)
+    corr = torch.stack([
+        torch.stack([torch.max(torch.abs(_xcorr_full(atx[:, m], arx[:, n])))
+                     for n in range(n_modes)])
+        for m in range(n_modes)])
+    swap = torch.argmax(corr, dim=0)
+    tx = tx[:, swap]
+    atx = centered_abs(tx)
+    delays = torch.stack([
+        torch.argmax(torch.abs(_xcorr_full(atx[:, k], arx[:, k])))
+        - tx.shape[0] + 1 for k in range(n_modes)])
+    tx = _roll_columns(tx, delays)
+    return tx[:, 0] if squeeze else tx
+
+
+def delay_signal(sig, delay, fs=1.0):
+    """Apply a (possibly fractional) time delay via an FFT phase ramp.
+
+    The signal is zero-padded by ceil(|delay*fs|)+1 to avoid circular wrap,
+    delayed with ``exp(-j*2*pi*f*delay)`` and cropped back (core.py:880).
+    """
+    sig = torch.as_tensor(sig)
+    squeeze = sig.ndim == 1
+    if squeeze:
+        sig = sig[:, None]
+    n = sig.shape[0]
+    pad_len = int(math.ceil(abs(delay * fs))) + 1
+    real_in = not sig.is_complex()
+    xp = torch.cat([sig, torch.zeros((pad_len, sig.shape[1]), dtype=sig.dtype,
+                                     device=sig.device)])
+    real_dtype = torch.float64 if sig.dtype in (torch.float64,
+                                                torch.complex128) else torch.float32
+    freq = fftfreq(xp.shape[0], 1.0 / fs, real_dtype, sig.device)
+    ramp = torch.exp(-1j * ((2 * math.pi * delay) * freq))
+    y = torch.fft.ifft(torch.fft.fft(xp, dim=0) * ramp[:, None], dim=0)[:n]
+    y = y.real if real_in else y.to(sig.dtype)
+    return y[:, 0] if squeeze else y
+
+
+def iq_mixing(sig, fs, amp_imb_db=0.0, phase_imb=0.0, time_skew=0.0):
+    """Apply IQ amplitude/phase imbalance and IQ time skew (core.py:925)."""
+    sig = torch.as_tensor(sig)
+    eps = 10 ** (amp_imb_db / 20) - 1
+    k1 = ((1 - eps) * cmath.exp(1j * phase_imb / 2) / 2
+          + (1 + eps) * cmath.exp(-1j * phase_imb / 2) / 2)
+    k2 = ((1 - eps) * cmath.exp(-1j * phase_imb / 2) / 2
+          - (1 + eps) * cmath.exp(1j * phase_imb / 2) / 2)
+    mixed = k1 * sig + k2 * sig.conj()
+    if time_skew == 0.0:
+        return mixed
+    delay = time_skew / 2
+    s_i = delay_signal(mixed.real, -delay, fs)
+    s_q = delay_signal(mixed.imag, delay, fs)
+    return torch.complex(s_i, s_q)

@@ -1,0 +1,62 @@
+"""Shared helpers for the tests that hold opticommpy_torch to opticommpy_tpu.
+
+Inputs are made from a seed with NumPy and handed to both packages as NumPy
+arrays; torch cannot reproduce ``jax.random`` streams, so noise is either
+drawn on the JAX side and passed to both, or switched off.
+"""
+
+import numpy as np
+import torch
+
+
+def to_np(x):
+    """NumPy copy of a torch tensor or a JAX/NumPy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def rel_err(a, b):
+    """||a - b|| / ||b|| over all elements."""
+    a, b = to_np(a).astype(np.complex128), to_np(b).astype(np.complex128)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def norm_qam(M=16):
+    """Gray-mapped square QAM at unit average energy, complex64."""
+    from opticommpy_torch.comm.modulation import gray_mapping
+
+    c = gray_mapping(M, "qam")
+    return (c / np.sqrt(np.mean(np.abs(c) ** 2))).astype(np.complex64)
+
+
+def mixed_polmux(seed, n_sym, sps=2, M=16, noise=0.01):
+    """(signal (n_sym*sps, 2), symbols (n_sym, 2)) complex64: QAM symbols at
+    sps samples/symbol through a fixed 2x2 mixing matrix plus noise."""
+    rng = np.random.default_rng(seed)
+    const = norm_qam(M)
+    sym = const[rng.integers(0, M, size=(n_sym, 2))]
+    x = np.zeros((n_sym * sps, 2), complex)
+    x[::sps] = sym
+    h = np.array([[0.9, 0.15 + 0.05j], [-0.1 + 0.08j, 0.95]])
+    sig = x @ h.T + noise * (rng.normal(size=x.shape) + 1j * rng.normal(size=x.shape))
+    return sig.astype(np.complex64), sym.astype(np.complex64)
+
+
+def noisy_symbols(seed, n, modes, const, snr_db=22.0, lw_ts=2e-6):
+    """Symbols with a random-walk phase and AWGN, complex64 (n, modes)."""
+    rng = np.random.default_rng(seed)
+    sym = const[rng.integers(0, len(const), size=(n, modes))]
+    phi = np.cumsum(rng.normal(scale=np.sqrt(2 * np.pi * lw_ts), size=(n, modes)), axis=0)
+    sigma = np.sqrt(10 ** (-snr_db / 10) / 2)
+    noise = sigma * (rng.normal(size=(n, modes)) + 1j * rng.normal(size=(n, modes)))
+    return (sym * np.exp(1j * phi) + noise).astype(np.complex64)
+
+
+def require_cuda():
+    """Skip the calling test when no CUDA device is present."""
+    import pytest
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
