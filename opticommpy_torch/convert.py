@@ -6,9 +6,11 @@ arrays travel as NumPy.
 - :func:`config_from_jax` builds the port's config from a JAX config
   dataclass instance.
 - :func:`taps_from_numpy` / :func:`taps_to_numpy` move equalizer taps
-  ``H[out, in, taps]`` (complex64).
+  ``H[out, in, taps]``, or a batch of them ``H[b, out, in, taps]``
+  (complex64).
 - :func:`sd_from_numpy` / :func:`sd_to_numpy` move the RLS
-  inverse-correlation state ``Sd[in, taps, taps]`` (complex64).
+  inverse-correlation state ``Sd[in, taps, taps]``, or a batch
+  ``Sd[b, in, taps, taps]`` (complex64).
 """
 
 import dataclasses
@@ -51,28 +53,31 @@ def config_from_jax(obj):
     return cls(**values)
 
 
-def _complex_tensor(a, ndim, what, device):
+def _complex_tensor(a, what, device):
     a = np.asarray(a)
-    if a.ndim != ndim:
-        raise ValueError(f"{what} must have {ndim} dimensions, got {a.shape}")
+    if a.ndim not in (3, 4):
+        raise ValueError(f"{what} must have 3 dimensions, or 4 for a batch, "
+                         f"got {a.shape}")
     return torch.as_tensor(a.astype(np.complex64), device=device)
 
 
 def taps_from_numpy(H, device=None):
-    """Equalizer taps (modes, modes, taps) as a complex64 tensor."""
-    return _complex_tensor(H, 3, "H", device)
+    """Equalizer taps (modes, modes, taps), or (B, modes, modes, taps), as a
+    complex64 tensor."""
+    return _complex_tensor(H, "H", device)
 
 
 def taps_to_numpy(H):
-    """Equalizer taps (modes, modes, taps) as a complex64 NumPy array."""
+    """Equalizer taps, single or batched, as a complex64 NumPy array."""
     return H.detach().to("cpu", torch.complex64).numpy()
 
 
 def sd_from_numpy(Sd, device=None):
-    """RLS state Sd (modes, taps, taps) as a complex64 tensor."""
-    return _complex_tensor(Sd, 3, "Sd", device)
+    """RLS state Sd (modes, taps, taps), or (B, modes, taps, taps), as a
+    complex64 tensor."""
+    return _complex_tensor(Sd, "Sd", device)
 
 
 def sd_to_numpy(Sd):
-    """RLS state Sd (modes, taps, taps) as a complex64 NumPy array."""
+    """RLS state Sd, single or batched, as a complex64 NumPy array."""
     return Sd.detach().to("cpu", torch.complex64).numpy()

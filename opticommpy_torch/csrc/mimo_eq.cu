@@ -2,8 +2,10 @@
 // (sm_90a).
 //
 // Replaces: opticommpy_tpu/kernels/mimo_pallas.py, `_kernel` (launched by
-// `_mimo_eq_run_windows`), with the update rules lms (data-aided for
-// n_train symbols, then decision-directed), nlms, cma, rde and da-rde.
+// `_mimo_eq_run_windows`, one signal) and `_kernel_batch` (launched by
+// `_mimo_eq_run_batch_windows`, B signals), with the update rules lms
+// (data-aided for n_train symbols, then decision-directed), nlms, cma, rde
+// and da-rde.
 //
 // What bounds it on an H100: a true per-symbol recurrence -- the taps
 // updated at symbol k filter symbol k+1 -- so the time axis cannot be split
@@ -15,6 +17,12 @@
 //
 // Design: one CTA of one warp per signal, a loop over symbols in place of
 // the TPU's sequential grid (so there is no tail padding to replicate).
+// The batched entry point launches the same kernel on a grid of B CTAs;
+// CTA b only moves its base pointers to signal b, so every signal runs the
+// single-signal instruction stream and the batched outputs are
+// bit-identical to single-signal launches.  The TPU packed the batch on
+// the sublane axis to fill its vector registers; here the B recurrences run
+// on B SMs side by side, and B up to the SM count costs the time of one.
 // Lane l owns window lane l (and l + 32, ... for wider equalizers) in the
 // TPU kernel's flattened tap-major/mode-minor layout l = t * modes + i, and
 // keeps the taps H[o][l] of every output mode in registers for the whole
@@ -54,8 +62,8 @@ __device__ __forceinline__ float quantize(float x, float lo, float step,
 
 template <int MAXM, int LPL>
 __global__ void __launch_bounds__(32)
-mimo_eq_kernel(const float2* __restrict__ sig_pad, long long start_off,
-               int stride, int n_sym, int modes, int width,
+mimo_eq_kernel(const float2* __restrict__ sig_pad, long long sig_bstride,
+               long long start_off, int stride, int n_sym, int modes, int width,
                const float2* __restrict__ ref, const float* __restrict__ c_re,
                const float* __restrict__ c_im, int m_const,
                const float* __restrict__ aux, int m_aux, int use_grid,
@@ -66,6 +74,14 @@ mimo_eq_kernel(const float2* __restrict__ sig_pad, long long start_off,
   __shared__ float s_cim[kMaxTable];
   __shared__ float s_aux[kMaxTable];
   const int lane = threadIdx.x;
+  // signal blockIdx.x of a batch: (B, rows, modes) padded signals, (B,
+  // n_sym, modes) references and outputs, (B, modes, width) taps
+  const size_t sig_b = (size_t)blockIdx.x;
+  sig_pad += sig_b * sig_bstride;
+  ref += sig_b * n_sym * modes;
+  y += sig_b * n_sym * modes;
+  h0 += sig_b * modes * width;
+  h_out += sig_b * modes * width;
   for (int i = lane; i < m_const; i += 32) {
     s_cre[i] = c_re[i];
     s_cim[i] = c_im[i];
@@ -261,27 +277,31 @@ mimo_eq_kernel(const float2* __restrict__ sig_pad, long long start_off,
 }
 
 template <int MAXM, int LPL>
-void launch(cudaStream_t stream, const float2* sig_pad, long long start_off,
-            int stride, int n_sym, int modes, int width, const float2* ref,
+void launch(cudaStream_t stream, int n_batch, const float2* sig_pad,
+            long long sig_bstride, long long start_off, int stride,
+            int n_sym, int modes, int width, const float2* ref,
             const float* c_re, const float* c_im, int m_const,
             const float* aux, int m_aux, int use_grid, float lo, float step,
             float top, int alg, float mu, int n_train, const float2* h0,
             float2* h_out, float2* y) {
-  mimo_eq_kernel<MAXM, LPL><<<1, 32, 0, stream>>>(
-      sig_pad, start_off, stride, n_sym, modes, width, ref, c_re, c_im,
-      m_const, aux, m_aux, use_grid, lo, step, top, alg, mu, n_train, h0,
-      h_out, y);
+  mimo_eq_kernel<MAXM, LPL><<<n_batch, 32, 0, stream>>>(
+      sig_pad, sig_bstride, start_off, stride, n_sym, modes, width, ref,
+      c_re, c_im, m_const, aux, m_aux, use_grid, lo, step, top, alg, mu,
+      n_train, h0, h_out, y);
 }
 
 }  // namespace
 
-// One training pass over n_sym symbols.  sig_pad: row-major (rows, modes)
-// complex64; the window of symbol k is the `width` = modes * taps values
-// starting at element start_off + k * stride.  ref: (n_sym, modes)
-// complex64.  h0, h_out: (modes, width) complex64 in the flattened
-// tap-major/mode-minor layout.  y: (n_sym, modes) complex64.  Returns
-// cudaGetLastError() (0 on success).
-extern "C" int mimo_eq_launch(const void* sig_pad, long long start_off,
+// One training pass over n_sym symbols for n_batch signals, one CTA each
+// (n_batch = 1: the single-signal pass).  sig_pad: row-major (n_batch,
+// rows, modes) complex64 with sig_bstride = rows * modes; within a signal
+// the window of symbol k is the `width` = modes * taps values starting at
+// element start_off + k * stride.  ref, y: (n_batch, n_sym, modes)
+// complex64.  h0, h_out: (n_batch, modes, width) complex64 in the
+// flattened tap-major/mode-minor layout.  Returns cudaGetLastError() (0 on
+// success).
+extern "C" int mimo_eq_launch(int n_batch, const void* sig_pad,
+                              long long sig_bstride, long long start_off,
                               int stride, int n_sym, int modes, int width,
                               const void* ref, const void* c_re,
                               const void* c_im, int m_const, const void* aux,
@@ -290,7 +310,7 @@ extern "C" int mimo_eq_launch(const void* sig_pad, long long start_off,
                               const void* h0, void* h_out, void* y,
                               void* stream) {
   if (m_const > kMaxTable || m_aux > kMaxTable || modes < 1 || alg < kLms ||
-      alg > kDaRde)
+      alg > kDaRde || n_batch < 1)
     return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   auto sp = (const float2*)sig_pad;
@@ -302,17 +322,17 @@ extern "C" int mimo_eq_launch(const void* sig_pad, long long start_off,
   auto ho = (float2*)h_out;
   auto yo = (float2*)y;
   if (modes <= 2 && width <= 32)
-    launch<2, 1>(s, sp, start_off, stride, n_sym, modes, width, rf, cr, ci,
-                 m_const, ax, m_aux, use_grid, lo, step, top, alg, mu,
-                 n_train, hp, ho, yo);
+    launch<2, 1>(s, n_batch, sp, sig_bstride, start_off, stride, n_sym,
+                 modes, width, rf, cr, ci, m_const, ax, m_aux, use_grid, lo,
+                 step, top, alg, mu, n_train, hp, ho, yo);
   else if (modes <= 4 && width <= 64)
-    launch<4, 2>(s, sp, start_off, stride, n_sym, modes, width, rf, cr, ci,
-                 m_const, ax, m_aux, use_grid, lo, step, top, alg, mu,
-                 n_train, hp, ho, yo);
+    launch<4, 2>(s, n_batch, sp, sig_bstride, start_off, stride, n_sym,
+                 modes, width, rf, cr, ci, m_const, ax, m_aux, use_grid, lo,
+                 step, top, alg, mu, n_train, hp, ho, yo);
   else if (modes <= 8 && width <= 256)
-    launch<8, 8>(s, sp, start_off, stride, n_sym, modes, width, rf, cr, ci,
-                 m_const, ax, m_aux, use_grid, lo, step, top, alg, mu,
-                 n_train, hp, ho, yo);
+    launch<8, 8>(s, n_batch, sp, sig_bstride, start_off, stride, n_sym,
+                 modes, width, rf, cr, ci, m_const, ax, m_aux, use_grid, lo,
+                 step, top, alg, mu, n_train, hp, ho, yo);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

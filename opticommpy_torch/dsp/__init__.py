@@ -14,4 +14,5 @@ from opticommpy_torch.dsp.equalization import (  # noqa: F401
     MIMOEqualizerConfig,
     edc,
     mimo_adapt_equalizer,
+    mimo_adapt_equalizer_batch,
 )

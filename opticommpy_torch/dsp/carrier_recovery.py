@@ -14,6 +14,7 @@ import torch
 from opticommpy_torch.comm.modulation import gray_mapping
 from opticommpy_torch.comm.sources import symbol_pmf
 from opticommpy_torch.ops.signal import fftfreq, pnorm
+from opticommpy_torch.utils.scan import cumsum
 
 __all__ = ["CPRConfig", "cpr", "bps", "fourth_power_foe", "residual_linewidth",
            "unwrap"]
@@ -47,7 +48,7 @@ def unwrap(p, dim=0, period=2 * math.pi):
     ddmod = torch.remainder(dd + interval, period_t) - interval
     ddmod = torch.where((ddmod == -interval) & (dd > 0), interval, ddmod)
     ph_correct = torch.where(torch.abs(dd) < interval, 0.0, ddmod - dd)
-    rest = p.narrow(dim, 1, p.shape[dim] - 1) + torch.cumsum(ph_correct, dim=dim)
+    rest = p.narrow(dim, 1, p.shape[dim] - 1) + cumsum(ph_correct, dim=dim)
     return torch.cat([p.narrow(dim, 0, 1), rest], dim=dim)
 
 

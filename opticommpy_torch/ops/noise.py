@@ -2,12 +2,16 @@
 
 Port of ``opticommpy_tpu/ops/noise.py``: where the JAX functions take a
 ``jax.random`` key first, these take a generator, and the draws land on
-the generator's device. The phase-noise random walk is a cumulative sum.
+the generator's device. The phase-noise random walk is a cumulative sum,
+taken with :func:`opticommpy_torch.utils.scan.cumsum` so that one seed
+gives the same walk on every run on a GPU.
 """
 
 import math
 
 import torch
+
+from opticommpy_torch.utils.scan import cumsum
 
 __all__ = ["gaussian_complex_noise", "gaussian_noise", "phase_noise"]
 
@@ -35,4 +39,4 @@ def phase_noise(generator, lw, n_samples, ts):
     std = math.sqrt(2 * math.pi * lw * ts)
     incr = std * torch.randn((n_samples - 1,), generator=generator,
                              device=generator.device)
-    return torch.cat([torch.zeros(1, device=incr.device), torch.cumsum(incr, 0)])
+    return torch.cat([torch.zeros(1, device=incr.device), cumsum(incr, 0)])

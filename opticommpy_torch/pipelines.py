@@ -4,9 +4,16 @@
 MIMO adaptive equalization -> 4th-power FOE -> BPS carrier recovery on the
 input's device. With ``eqBackend="pallas"`` and ``cprBackend="pallas"`` the
 equalizer's training passes and the BPS run on the Hopper kernels
-(``kernels/mimo_eq.py``, ``kernels/bps.py``); CPU tensors run the kernels'
-plain versions. Clock recovery (``runCR=True``), ``coherent_dsp_serve`` and
-the batch chains are not ported yet (ROADMAP.md queue 1, items 11-12).
+(``kernels/mimo_eq.py``, ``kernels/rls.py``, ``kernels/bps.py``); CPU tensors
+run the kernels' plain versions.
+
+:func:`coherent_dsp_chain_batch` receives B signals at once (for example
+the channels of a WDM field): a front end per signal, then every
+equalizer pass of all B signals in one kernel launch (K3 for the gradient
+rules, K5 for rls / dd-rls) and one BPS launch over all B * modes columns.
+
+Clock recovery (``runCR=True``) and ``coherent_dsp_serve`` are not ported
+yet (ROADMAP.md queue 1, items 11-12).
 """
 
 from dataclasses import dataclass
@@ -21,11 +28,12 @@ from opticommpy_torch.dsp.equalization import (
     MIMOEqualizerConfig,
     edc,
     mimo_adapt_equalizer,
+    mimo_adapt_equalizer_batch,
 )
 from opticommpy_torch.ops.filtering import fir_filter, pulse_shape
 from opticommpy_torch.ops.signal import decimate, pnorm
 
-__all__ = ["CoherentDSPConfig", "coherent_dsp_chain"]
+__all__ = ["CoherentDSPConfig", "coherent_dsp_chain", "coherent_dsp_chain_batch"]
 
 
 @dataclass(frozen=True)
@@ -152,3 +160,71 @@ def coherent_dsp_chain(sig, symb_ref, config: CoherentDSPConfig = CoherentDSPCon
     phases = unwrap(4 * phases, dim=0) / 4
     y = pnorm(y * torch.exp(1j * phases))
     return y, phases
+
+
+def coherent_dsp_chain_batch(sig_batch, symb_ref_batch,
+                             config: CoherentDSPConfig = CoherentDSPConfig()):
+    """Adaptive coherent chain for a batch of signals (port of the JAX
+    ``coherent_dsp_chain_batch``).
+
+    Each signal gets its own front end (matched filter, decimation with its
+    own max-variance phase, CD compensation, normalization, 4th-power FOE
+    before the equalizer). With ``eqBackend="pallas"`` the full multi-stage
+    schedule (``config.alg``/``config.mu``, numIter=2) runs through
+    :func:`mimo_adapt_equalizer_batch`; otherwise one pass of LMS for all
+    signals (data-aided for nTrain symbols, step ``mu[-1]``, as the JAX
+    chain does). BPS always runs on its kernel, whatever ``cprBackend`` says,
+    with the batch folded into the mode axis.
+
+    Parameters
+    ----------
+    sig_batch : (B, N, modes) received signals at ``SpS_in`` samples/symbol.
+    symb_ref_batch : (B, nSym, modes) synchronized reference symbols.
+
+    Returns
+    -------
+    (y (B, nSym, modes), phases (nSym, B*modes)).
+    """
+    from opticommpy_torch.kernels.bps import bps_kernel
+    from opticommpy_torch.kernels.mimo_eq import mimo_eq_kernel_batch
+
+    cfg = config
+    if cfg.runCR:
+        raise NotImplementedError(
+            "coherent_dsp_chain_batch: runCR (clock recovery) is not ported yet "
+            "(ROADMAP.md queue 1, item 12)")
+    sig_batch = torch.as_tensor(sig_batch)
+    symb_ref_batch = torch.as_tensor(symb_ref_batch).to(sig_batch.device)
+    fs_dsp = cfg.Rs * cfg.SpS_dsp
+    pulse = pulse_shape(cfg.pulseType, cfg.SpS_in, cfg.nFilterTaps,
+                        cfg.rollOff).astype(np.float32)
+    edc_cfg = EDCConfig(L=cfg.L, D=cfg.D, Fc=cfg.Fc, Fs=fs_dsp, Rs=cfg.Rs)
+
+    def front(sig):
+        x = fir_filter(pulse, sig)
+        x = decimate(x, cfg.SpS_in, cfg.SpS_dsp)
+        x = pnorm(edc(x, edc_cfg))
+        if cfg.runFOE:
+            x, _ = fourth_power_foe(x, fs_dsp, 4)
+            x = pnorm(x)
+        return x
+
+    x = torch.stack([front(s) for s in sig_batch])  # (B, n_dsp, modes)
+    const = _norm_const(cfg.M)
+    ref = torch.stack([pnorm(r) for r in symb_ref_batch])
+    if cfg.eqBackend == "pallas":
+        eq_cfg = MIMOEqualizerConfig(
+            nTaps=cfg.nTaps, SpS=cfg.SpS_dsp, mu=cfg.mu, alg=cfg.alg,
+            L=_stage_lengths(cfg, ref.shape[1]), M=cfg.M, numIter=2,
+            blockUpdate=cfg.blockUpdate, backend="pallas")
+        y = mimo_adapt_equalizer_batch(x, eq_cfg, symb_ref=ref)
+    else:
+        y, _ = mimo_eq_kernel_batch(x, ref, const, alg="lms", n_taps=cfg.nTaps,
+                                    sps=cfg.SpS_dsp, mu=float(cfg.mu[-1]),
+                                    n_train=cfg.nTrain)
+    b, n_sym, m = y.shape
+    y_cols = y.transpose(0, 1).reshape(n_sym, b * m)
+    phases = bps_kernel(y_cols, cfg.cpr_window // 2, const, cfg.cpr_phases)
+    phases = unwrap(4 * phases, dim=0) / 4
+    out = (y_cols * torch.exp(1j * phases)).reshape(n_sym, b, m)
+    return out.transpose(0, 1), phases

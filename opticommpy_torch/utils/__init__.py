@@ -1,4 +1,5 @@
-"""General utilities: unit conversions and random-generator helpers."""
+"""General utilities: unit conversions, random-generator helpers and a
+run-independent cumulative sum (:mod:`.scan`)."""
 
 from opticommpy_torch.utils.rng import ensure_generator
 from opticommpy_torch.utils.units import db2lin, dbm2w, lin2db, w2dbm

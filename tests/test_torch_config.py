@@ -88,7 +88,7 @@ def test_package_imports_with_jax_blocked():
             "sys.modules['opticommpy_tpu'] = None; "
             "import opticommpy_torch, opticommpy_torch.pipelines, "
             "opticommpy_torch.convert, opticommpy_torch.kernels.bps, "
-            "opticommpy_torch.kernels.mimo_eq; print('ok')")
+            "opticommpy_torch.kernels.mimo_eq, opticommpy_torch.kernels.rls; print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=PORT_ROOT.parent, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -115,7 +115,7 @@ def test_equalizer_module_carries_taps():
 
 
 @pytest.mark.parametrize("change", [
-    dict(alg=("rls",)), dict(alg=("nlms", "dd-rls"), L=(100, 100)),
+    dict(alg=("static",)), dict(alg=("nlms", "static"), L=(100, 100)),
     dict(runWL=True), dict(storeCoeff=True), dict(blockUpdate=16)])
 def test_unported_options_raise(change):
     sig, sym = mixed_polmux(31, 256)

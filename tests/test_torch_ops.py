@@ -24,8 +24,9 @@ from opticommpy_torch.dsp import equalization as teq  # noqa: E402
 from opticommpy_torch.ops import filtering as tfilt  # noqa: E402
 from opticommpy_torch.ops import noise as tnoise  # noqa: E402
 from opticommpy_torch.ops import signal as tsig  # noqa: E402
+from opticommpy_torch.utils import scan  # noqa: E402
 
-from _torch_parity import noisy_symbols, norm_qam, rel_err, to_np  # noqa: E402
+from _torch_parity import noisy_symbols, norm_qam, rel_err, require_cuda, to_np  # noqa: E402
 
 FFT_TOL = 1e-5
 
@@ -113,6 +114,39 @@ def test_unwrap_matches_jnp():
     ref = np.asarray(jnp.unwrap(4 * wrapped, axis=0) / 4)
     out = tcr.unwrap(4 * torch.as_tensor(wrapped), dim=0) / 4
     np.testing.assert_allclose(to_np(out), ref, rtol=0, atol=1e-4)
+
+
+def test_unwrap_long_1d_matches_jnp():
+    """A 1-D phase record longer than one scan block (the blocked cumsum)."""
+    rng = np.random.default_rng(9)
+    p = np.cumsum(rng.normal(scale=1.5, size=5000))
+    wrapped = np.angle(np.exp(1j * p)).astype(np.float32)
+    ref = np.asarray(jnp.unwrap(wrapped))
+    out = tcr.unwrap(torch.as_tensor(wrapped), dim=0)
+    np.testing.assert_allclose(to_np(out), ref, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape,dim", [((5,), 0), ((1024,), 0), ((1025,), 0),
+                                       ((70001,), 0), ((3000, 1), 0), ((1, 3000), 1),
+                                       ((3000, 3), 0)])
+def test_scan_cumsum_matches_cumsum(shape, dim):
+    """The run-independent cumsum sums in blocks; it agrees with a float64
+    cumulative sum to float32 rounding (relative 1e-6 of the largest sum)."""
+    x = np.random.default_rng(8).normal(size=shape).astype(np.float32)
+    ref = np.cumsum(x.astype(np.float64), axis=dim)
+    out = scan.cumsum(torch.as_tensor(x), dim)
+    assert out.shape == x.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6 * np.abs(ref).max() + 1e-6)
+
+
+@pytest.mark.gpu
+def test_phase_noise_is_reproducible_on_gpu():
+    """One seed, one walk: torch.cumsum of a whole CUDA tensor is not
+    run-to-run reproducible, the phase noise's scan is."""
+    dev = require_cuda()
+    walks = [tnoise.phase_noise(torch.Generator(device=dev).manual_seed(0), 100e3, 2**20,
+                                1 / 512e9) for _ in range(4)]
+    assert all(torch.equal(walks[0], w) for w in walks[1:])
 
 
 def test_gaussian_complex_noise_variance():

@@ -3,7 +3,9 @@
 Runs chip_smoke.run_main_path once to warm up, then profiles a second
 manakov_ssf call and a second coherent_dsp_chain call with torch.profiler
 and prints, for each, the device time by kernel name and the device's busy
-share of the wall time.
+share of the wall time. Then it receives all 11 channels of the field
+(chip_smoke.receive_wdm) and profiles a warm coherent_dsp_chain_batch call
+for each training schedule, ("da-rde", "dd-lms") and ("rls", "dd-rls").
 
 Usage: python3 tools/profile_torch_main_path.py
 """
@@ -11,6 +13,7 @@ Usage: python3 tools/profile_torch_main_path.py
 import os
 import sys
 import time
+from dataclasses import replace
 
 import torch
 from torch.autograd import DeviceType
@@ -20,7 +23,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from opticommpy_torch.models import manakov_ssf  # noqa: E402
-from opticommpy_torch.pipelines import coherent_dsp_chain  # noqa: E402
+from opticommpy_torch.pipelines import coherent_dsp_chain, coherent_dsp_chain_batch  # noqa: E402
 
 
 def _profile(name, fn):
@@ -46,6 +49,12 @@ def main():
              lambda: manakov_ssf(res["sig_tx"], res["cfg_ch"], res["gen"]))
     _profile("coherent_dsp_chain (65536 symbols, kernel backends)",
              lambda: coherent_dsp_chain(res["sig_rx"], res["d_ref"], res["cfg"]))
+    sig_b, ref_b = chip_smoke.receive_wdm(res)
+    for algs in (("da-rde", "dd-lms"), ("rls", "dd-rls")):
+        cfg = replace(res["cfg"], alg=algs)
+        coherent_dsp_chain_batch(sig_b, ref_b, cfg)  # warm-up
+        _profile(f"coherent_dsp_chain_batch {algs} (11 x 65536 symbols)",
+                 lambda: coherent_dsp_chain_batch(sig_b, ref_b, cfg))
 
 
 if __name__ == "__main__":
