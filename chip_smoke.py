@@ -14,7 +14,12 @@ Phases:
    the five rules at B=3 x 4,096 symbols, bit-identical per signal to K2,
    and at B=11 x 12,000 symbols (da-rde); K5, the batched RLS, at B=11 x
    12,000 symbols for rls and dd-rls (lambda 0.99); K4, the single-signal
-   RLS with the argmin slicer, on 8-PSK dd-rls at 4,096 symbols.
+   RLS with the argmin slicer, on 8-PSK dd-rls at 4,096 symbols; K6, the
+   Gardner loop, at 16,384 x 2 samples (Nyquist TED) and 4,096 x 2
+   (classic), and on a short input where a stuff follows a backstep (and
+   on path A's own input, phase 8); K7, the DD-PLL, at 65,536 symbols x 22
+   columns with a pilot every 32nd symbol, against the reference rule
+   ``carrier_recovery.ddpll``.
 4. main path, launch counters reset just before and read just after:
    ``simple_wdm_tx`` (11 channels of 16-QAM polmux, 32 GBd, SpS 16, 2**18
    bits = 2**20 samples, 37.5 GHz grid, -2 dBm/ch, RRC 0.01 with 1024 taps,
@@ -46,8 +51,30 @@ Phases:
 7. 8-PSK receiver (counters reset and read): ``mimo_rls_kernel`` with
    dd-rls on a 65,536-symbol 8-PSK polmux signal, which runs K4 once;
    symbol errors after convergence checked.
-8. timing of every phase; then the kernels JSON line, and last the
-   ``{"ok": true, "device": ...}`` line.
+8. clock recovery and serving, counters reset just before each and read
+   just after; checked against the JAX package (numbers from
+   ``tools/jax_cr_serve_reference.py``):
+   A. the centre channel at a receiver clock 200 ppm fast (with sampling
+      jitter) through ``coherent_dsp_chain`` with Gardner clock recovery on
+      K6 (K6 1 launch, K2 3, K1 1); BER <= 2 x JAX + 1e-4 and GMI >= JAX -
+      0.05 per polarization; run twice (bit-identity printed); K6 against
+      its plain version on the input it got there (~131,100 x 2 samples) and
+      timed on it; the same signal without clock recovery as the control;
+   B. channel k of the WDM receiver at its own offset -200 + 40 k ppm
+      through ``coherent_dsp_chain_batch`` with feedforward clock recovery
+      (K3 3, K1 1, K6 none); the clock estimates printed; every channel
+      and polarization against the same chain on the CPU (BER <= 2 x CPU +
+      1e-4, GMI >= CPU - 0.05);
+   C. every channel with its LO at its grid frequency, resampled to 64 GS/s;
+      taps trained by ``mimo_adapt_equalizer_batch`` (K3 3), served by
+      ``coherent_dsp_serve`` (K1 1, over 22 columns; checked against the
+      staged mimo_apply + BPS composition, rel. err < 5e-2) and by the
+      DD-PLL, ``cpr(alg="ddpll-pallas")`` with a pilot every 32nd symbol (K7
+      1). B and C: every polarization printed; BER and GMI medians over the
+      22 polarizations against the JAX package's.
+9. the time of every phase; then the kernels JSON line (K1-K7, each with
+   its bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s),
+   and last the ``{"ok": true, "device": ...}`` line.
 
 Usage: python3 chip_smoke.py
 """
@@ -120,8 +147,101 @@ JAX_WDM = {
                 (3.9953064918518066, 3.9970946311950684))},
 }
 
+# The JAX package (0.9.0) on the CPU at the clock-recovery and serving
+# paths' configuration (A per polarization; B and C per channel, wdm_freq_grid
+# order, and polarization): JAX_PLATFORMS=cpu python tools/jax_cr_serve_reference.py
+JAX_CR_A = dict(
+    ber=(0.0003987085656262934, 0.0005737513420172036),
+    gmi=(3.992408514022827, 3.989628791809082),
+    no_cr_ber=(0.49610042572021484, 0.4985947906970978))
+JAX_CR_BC = {
+    'B ffw': {
+        "ber": (
+            (0.0007345787598751485, 0.45795875787734985),
+            (3.891807864420116e-05, 0.002490757033228874),
+            (0.1848219484090805, 0.028541546314954758),
+            (0.49599143862724304, 0.4926980137825012),
+            (0.20180968940258026, 0.008454952389001846),
+            (0.008654408156871796, 0.00849873572587967),
+            (0.4983313977718353, 0.008255497552454472),
+            (0.00853278860449791, 0.00858630146831274),
+            (0.008625219576060772, 0.008741972967982292),
+            (0.45290428400039673, 0.44293150305747986),
+            (0.48891809582710266, 0.0874878391623497)),
+        "gmi": (
+            (3.709331512451172, -0.16413676738739014),
+            (3.996995687484741, 3.7849771976470947),
+            (0.9791037440299988, 2.9767465591430664),
+            (-0.2444852590560913, -0.23667633533477783),
+            (0.25694578886032104, 3.2175042629241943),
+            (3.2101480960845947, 3.1776034832000732),
+            (-0.2510122060775757, 3.2180352210998535),
+            (3.234224796295166, 3.22464656829834),
+            (3.324087142944336, 3.3177335262298584),
+            (-0.14715832471847534, -0.11944949626922607),
+            (-0.22201454639434814, 2.050748348236084))},
+    'C serve': {
+        "ber": (
+            (0.0011130337370559573, 0.0009818027028813958),
+            (4.3743682908825576e-05, 2.430204585834872e-05),
+            (0.00013123104872647673, 0.00016039350884966552),
+            (0.0, 0.00043743682908825576),
+            (0.0, 0.47092506289482117),
+            (0.4703806936740875, 0.0),
+            (0.0, 0.0),
+            (0.0, 0.0),
+            (0.4922865629196167, 0.43566763401031494),
+            (0.0, 4.860409262619214e-06),
+            (7.290613575605676e-05, 7.776654820190743e-05)),
+        "gmi": (
+            (3.510382652282715, 3.437070846557617),
+            (3.993643283843994, 3.994194984436035),
+            (3.9178881645202637, 3.8834617137908936),
+            (3.999978542327881, 3.9931395053863525),
+            (4.0, -0.20552432537078857),
+            (-0.17223966121673584, 3.9999985694885254),
+            (4.0, 4.0),
+            (4.0, 4.0),
+            (-0.23359286785125732, -0.14249610900878906),
+            (3.999987840652466, 3.9999537467956543),
+            (3.9978244304656982, 3.9973018169403076))},
+    'C ddpll': {
+        "ber": (
+            (0.0011762190843001008, 0.001258846023119986),
+            (0.0002867641451302916, 0.0002478808746673167),
+            (0.00019927677931264043, 0.00011664982594083995),
+            (0.0, 0.0666750967502594),
+            (4.860409262619214e-06, 0.33536824584007263),
+            (0.4131688177585602, 9.720818525238428e-06),
+            (0.0, 0.0),
+            (1.4581228242604993e-05, 0.0),
+            (0.4817977845668793, 0.2213381826877594),
+            (0.0, 0.0),
+            (0.01914515160024166, 0.00020899760420434177)),
+        "gmi": (
+            (3.5345776081085205, 3.510385036468506),
+            (3.964319944381714, 3.9679439067840576),
+            (3.974628448486328, 3.934098243713379),
+            (3.9999887943267822, 2.2430520057678223),
+            (3.9998416900634766, 0.4977568984031677),
+            (0.09003567695617676, 3.999669075012207),
+            (3.9999992847442627, 4.0),
+            (3.9999048709869385, 4.0),
+            (-0.1968017816543579, 1.3611117601394653),
+            (3.999986171722412, 3.99999737739563),
+            (3.0697131156921387, 3.9938511848449707))},
+}
+
 BPS_MAX_MISMATCH = 0.01  # the JAX package's near-tie rule
 EQ_Y_ATOL, EQ_H_ATOL = 2e-4, 1e-3  # the JAX package's scan-vs-kernel pins
+CR_ATOL, PLL_ATOL = 1e-5, 2e-4  # Gardner kernel vs loop; DD-PLL kernel vs scan
+SERVE_REL = 5e-2  # serve vs the staged composition (tests/test_pipelines.py:293)
+# roofline of one H100 SXM (NVIDIA's data sheet): device memory and float32
+# outside the tensor cores
+HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
+PPM_A = 200.0
+PPM_B = tuple(-200.0 + 40.0 * k for k in range(11))
+PILOT_EVERY = 32
 
 
 def _cuda_ms(fn, reps, warmup=True):
@@ -150,6 +270,56 @@ def _wall(fn):
 def _check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the card's memory
+    rate and the float32 operations over its peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bps_cost(n, modes, n_phases):
+    """(bytes, flops) of BPS: complex64 in, int32 out; per (symbol, test
+    phase) a rotation and the square-QAM distance (~25 operations) and the
+    window sum as a running sum (an add and a subtract)."""
+    return n * modes * (8 + 4), n * modes * n_phases * (25 + 2)
+
+
+def _eq_cost(n_batch, n_sym, modes=2, n_taps=15, sps=2):
+    """(bytes, flops) of one gradient-rule pass: the padded signal, the
+    references and the output (complex64); per symbol the filter and the
+    rank-1 update, modes x modes x taps complex multiply-adds each."""
+    nbytes = n_batch * 8 * modes * (sps * n_sym + 2 * n_taps + n_sym + n_sym)
+    return nbytes, n_batch * n_sym * (2 * 8 * modes * modes * n_taps + 20)
+
+
+def _rls_cost(n_batch, n_sym, modes=2, n_taps=15, sps=2):
+    """(bytes, flops) of one RLS pass: as the gradient rules, plus per symbol
+    and mode the four taps x taps complex products of the Sd update."""
+    nbytes, flops = _eq_cost(n_batch, n_sym, modes, n_taps, sps)
+    return nbytes, flops + n_batch * n_sym * modes * 4 * 8 * n_taps * n_taps
+
+
+def _gardner_cost(n_in, n_out, modes, iterations):
+    """(bytes, flops) of the Gardner loop: complex64 in, complex64 and f32
+    out; ~40 float operations per iteration (the data decides how many)."""
+    return modes * (8 * n_in + 12 * n_out), 40 * iterations
+
+
+def _ddpll_cost(n, n_cols, n_pilots):
+    """(bytes, flops) of the DD-PLL: the signal (complex64), the reference
+    symbols of the pilot rows only (complex64) and the pilot mask in, f32
+    phases out; ~40 float operations per symbol and column (sine and cosine
+    counted as ~10 each)."""
+    return n * n_cols * (8 + 4) + n_pilots * n_cols * 8 + 4 * n, 40 * n * n_cols
+
+
+def _with_bound(entry, nbytes, flops):
+    entry["bound_ms"], entry["bound_by"] = _bound(nbytes, flops)
+    entry["library_ms"] = None  # no single PyTorch call computes this function
+    return entry
 
 
 def phase_device():
@@ -258,7 +428,8 @@ def phase_batch_kernels_vs_plain(dev, const):
     print(f"K3 mimo_eq_batch da-rde (B=11 x 12000 sym, 2x2, 15 taps): max |y err| "
           f"{err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
     _check(err < EQ_Y_ATOL, "batched equalizer kernel disagrees with plain (B=11)")
-    report["mimo_eq_batch"] = dict(max_abs_err=max(worst, err), ms=ms, plain_ms=plain_ms)
+    report["mimo_eq_batch"] = _with_bound(
+        dict(max_abs_err=max(worst, err), ms=ms, plain_ms=plain_ms), *_eq_cost(11, 12000))
     report["k3_vs_k2_max_abs_diff"] = k2_diff
 
     # K5: the batched RLS at B=11 x 12000 symbols, lambda 0.99 (the chain's)
@@ -282,7 +453,8 @@ def phase_batch_kernels_vs_plain(dev, const):
         _check(bool(torch.isfinite(y_k).all()), f"K5 output not finite ({alg})")
         worst = max(worst, y_err)
         times.append((ms, plain_ms))
-    report["rls_batch"] = dict(max_abs_err=worst, ms=times[0][0], plain_ms=times[0][1])
+    report["rls_batch"] = _with_bound(
+        dict(max_abs_err=worst, ms=times[0][0], plain_ms=times[0][1]), *_rls_cost(11, 12000))
 
     # K4: the single-signal RLS with the argmin slicer, 8-PSK dd-rls
     psk = np.exp(2j * np.pi * np.arange(8) / 8).astype(np.complex64)
@@ -298,7 +470,8 @@ def phase_batch_kernels_vs_plain(dev, const):
     print(f"K4 rls argmin dd-rls 8-PSK (4096 sym, 2x2, 15 taps, lambda 0.99): max |y err| "
           f"{y_err:.3e}, max |H err| {h_err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
     _check(y_err < EQ_Y_ATOL and h_err < EQ_H_ATOL, "K4 disagrees with plain (8-PSK)")
-    report["rls_argmin"] = dict(max_abs_err=y_err, ms=ms, plain_ms=plain_ms)
+    report["rls_argmin"] = _with_bound(dict(max_abs_err=y_err, ms=ms, plain_ms=plain_ms),
+                                       *_rls_cost(1, 4096))
     return report
 
 
@@ -325,7 +498,8 @@ def phase_kernels_vs_plain(dev, const):
               f"max |phase err| {err:.3e} rad, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         _check(mismatch < BPS_MAX_MISMATCH, f"BPS kernel disagrees with plain ({label})")
         if label == "qam16":
-            report["bps"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            report["bps"] = _with_bound(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
+                                        *_bps_cost(n, 2, 64))
 
     # K2: the adaptive equalizer recurrence, each rule
     def polmux(n_sym, seed):
@@ -362,7 +536,8 @@ def phase_kernels_vs_plain(dev, const):
     print(f"K2 mimo_eq da-rde (12000 sym, 2x2, 15 taps): max |y err| {err:.3e}, "
           f"kernel {ms:.3f} ms, plain {plain_s * 1e3:.1f} ms")
     _check(err < EQ_Y_ATOL, "equalizer kernel disagrees with plain (12000 symbols)")
-    report["mimo_eq"] = dict(max_abs_err=max(worst, err), ms=ms, plain_ms=plain_s * 1e3)
+    report["mimo_eq"] = _with_bound(dict(max_abs_err=max(worst, err), ms=ms,
+                                         plain_ms=plain_s * 1e3), *_eq_cost(1, 12000))
     return report
 
 
@@ -529,6 +704,7 @@ def run_wdm_paths(dev, res, n_channels=11, n_train=12000):
                             f"{jax_med_ber:.3e} {jax_med_gmi:.4f}")
         out[name] = dict(counts=counts, warm_s=warm_s, same=same, cfg=cfg_s)
     _check(not failures, "WDM bounds failed:\n  " + "\n  ".join(failures))
+    out["received"] = (sig_b, ref_b)
     return out
 
 
@@ -553,6 +729,412 @@ def run_psk_path(dev, n_sym=65536):
     return counts
 
 
+def _cr_wave(dev, const, n_sym, seed, ppm):
+    """(N, 2) 16-QAM polmux at 2 samples/symbol (RRC 0.1, 256 taps),
+    resampled to a clock ``ppm`` fast, on ``dev``."""
+    from opticommpy_torch.ops import clock_sampling_interp, fir_filter, pulse_shape, upsample
+
+    r = np.random.default_rng(seed)
+    sym = torch.as_tensor(const[r.integers(0, len(const), size=(n_sym, 2))], device=dev)
+    x = fir_filter(pulse_shape("rrc", 2, 256, 0.1), upsample(sym, 2))
+    return clock_sampling_interp(x, 1.0, 1.0 / (1 + ppm * 1e-6))
+
+
+def phase_clock_pll_kernels(dev, const, n_cmp=16384, n_pll=65536):
+    """K6 on short inputs and K7 against their plain versions on the card,
+    and K7's time."""
+    from opticommpy_torch.dsp.carrier_recovery import ddpll as ddpll_rule
+    from opticommpy_torch.kernels import ddpll, gardner
+
+    report = {}
+    # K6: the Gardner loop, Nyquist TED (path A's) and classic, 2 modes
+    pad = torch.zeros((1, 2), dtype=torch.complex64, device=dev)
+    wave = _cr_wave(dev, const, n_cmp // 2, 60, 250.0)
+    worst = 0.0
+    # the plain loop costs ~1 ms per sample (H100 80GB HBM3 at 700 W,
+    # PERF.md): the classic TED on a quarter of the length
+    for nyquist, n in ((True, n_cmp), (False, n_cmp // 4)):
+        x = torch.cat([wave[:n - 1], pad])
+        n_out = int((1 - 500e-6) * x.shape[0])
+        eo_k, tv_k, n_k = gardner.gardner_records(x, 2e-3, 1e-5, nyquist, n_out)
+        (eo_p, tv_p, n_p), plain_s = _wall(
+            lambda: gardner.gardner_plain(x, 2e-3, 1e-5, nyquist, n_out))
+        e_err = float((eo_k - eo_p).abs().max())
+        t_err = float((tv_k - tv_p).abs().max())
+        same_n = bool(torch.equal(n_k, n_p))
+        ms = _cuda_ms(lambda: gardner.gardner_records(x, 2e-3, 1e-5, nyquist, n_out), 3)
+        print(f"K6 gardner ({'nyquist' if nyquist else 'classic'}, {x.shape[0]} x 2 samples, "
+              f"250 ppm): max |eo err| {e_err:.3e}, max |t err| {t_err:.3e}, n_final equal "
+              f"{same_n} {n_k.tolist()}, kernel {ms:.3f} ms, plain {plain_s * 1e3:.1f} ms")
+        _check(e_err < CR_ATOL and t_err < CR_ATOL and same_n,
+               f"Gardner kernel disagrees with plain (nyquist={nyquist})")
+        worst = max(worst, e_err, t_err)
+    # a stuff two iterations after a backstep (high loop gain, short input)
+    r = np.random.default_rng(34)
+    xb = torch.as_tensor(np.concatenate([
+        (r.normal(size=(400, 1)) + 1j * r.normal(size=(400, 1))).astype(np.complex64),
+        np.zeros((1, 1), np.complex64)]), device=dev)
+    k_out = gardner.gardner_records(xb, 0.2, 0.0, False, 400)
+    p_out = gardner.gardner_plain(xb, 0.2, 0.0, False, 400)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(k_out, p_out))
+    print(f"K6 gardner, a stuff after a backstep (400 samples, kp 0.2): kernel equals plain "
+          f"{same}")
+    _check(same, "Gardner kernel disagrees with plain after a backstep")
+    # path A's own input is compared and timed in run_cr_path_a
+    report["gardner_short_err"] = worst
+
+    # K7: the DD-PLL over 22 columns with a pilot every PILOT_EVERY-th symbol,
+    # against its plain version, the reference rule carrier_recovery.ddpll
+    r = np.random.default_rng(62)
+    tx = const[r.integers(0, 16, size=(n_pll, 22))]
+    phi = np.cumsum(r.normal(scale=np.sqrt(2 * np.pi * 2e-6), size=(n_pll, 22)), axis=0)
+    noise = 0.05 * (r.normal(size=(n_pll, 22)) + 1j * r.normal(size=(n_pll, 22)))
+    xs = torch.as_tensor((tx * np.exp(1j * phi) + noise).astype(np.complex64), device=dev)
+    ref = torch.as_tensor(tx.astype(np.complex64), device=dev)
+    pilot = torch.zeros(n_pll, device=dev)
+    pilot[::PILOT_EVERY] = 1.0
+    loop = (1 / 32e9, 0.1, 1 / (2 * np.pi * 10e6), 1 / (2 * np.pi * 10e6))
+    est_k = ddpll.ddpll_phases(xs, ref, pilot, const, *loop)
+    est_p, plain_s = _wall(lambda: ddpll_rule(
+        xs, *loop, torch.as_tensor(const, device=dev), symb_tx=ref,
+        pilot_ind=np.arange(0, n_pll, PILOT_EVERY)))
+    err = float((est_k - est_p).abs().max())
+    ms = _cuda_ms(lambda: ddpll.ddpll_phases(xs, ref, pilot, const, *loop), 5)
+    print(f"K7 ddpll ({n_pll} x 22 columns, 16-QAM, pilot every {PILOT_EVERY}): max |phase err| "
+          f"{err:.3e} rad against carrier_recovery.ddpll, kernel {ms:.3f} ms, plain "
+          f"{plain_s * 1e3:.1f} ms")
+    _check(err < PLL_ATOL and bool(torch.isfinite(est_k).all()),
+           "DD-PLL kernel disagrees with plain")
+    report["ddpll"] = _with_bound(dict(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3),
+                                  *_ddpll_cost(n_pll, 22, int(pilot.sum())))
+    return report
+
+
+def _scores(y, ref, disc):
+    """Per polarization (BER, GMI, EVM) numpy arrays after ``disc`` symbols."""
+    from opticommpy_torch.comm.metrics import calc_evm, fast_ber_calc, monte_carlo_gmi
+
+    yy, dd = y[disc:-100], ref[disc:-100]
+    ber, _, _ = fast_ber_calc(yy, dd, 16, "qam")
+    gmi, _ = monte_carlo_gmi(yy, dd, 16, "qam")
+    evm = calc_evm(yy, 16, "qam", symb_tx=dd)
+    return tuple(t.cpu().numpy() for t in (ber, gmi, evm))
+
+
+def _retained(n_samples_in):
+    """Symbols clock recovery keeps of an SpS-16 input: int((1 - 500e-6) *
+    n_dsp) // 2 (tools/jax_cr_serve_reference.py)."""
+    return int((1 - 500e-6) * (-(-n_samples_in // 8))) // 2
+
+
+def _counts():
+    from opticommpy_torch.kernels import bps, ddpll, gardner, mimo_eq, rls
+
+    return dict(bps=bps.launches, mimo_eq=mimo_eq.launches,
+                mimo_eq_batch=mimo_eq.batch_launches, rls=rls.launches,
+                rls_batch=rls.batch_launches, gardner=gardner.launches,
+                ddpll=ddpll.launches)
+
+
+def _reset_counts():
+    from opticommpy_torch.kernels import bps, ddpll, gardner, mimo_eq, rls
+
+    bps.launches = mimo_eq.launches = mimo_eq.batch_launches = 0
+    rls.launches = rls.batch_launches = gardner.launches = ddpll.launches = 0
+
+
+def _expect(**nonzero):
+    out = dict.fromkeys(("bps", "mimo_eq", "mimo_eq_batch", "rls", "rls_batch", "gardner",
+                         "ddpll"), 0)
+    out.update(nonzero)
+    return out
+
+
+def path_a_inputs(res, n_train=12000):
+    """(signal at a receiver clock PPM_A fast with sampling jitter, the
+    reference trimmed to what clock recovery keeps, the chain's config)."""
+    from opticommpy_torch.ops import clock_sampling_interp
+    from opticommpy_torch.pipelines import CoherentDSPConfig
+
+    fs = 16 * 32e9
+    sig_off = clock_sampling_interp(res["sig_rx"], fs, fs * (1 + PPM_A * 1e-6),
+                                    jitter_rms=1e-3 / fs, generator=res["gen"])
+    d_cr = res["d_ref"][:_retained(sig_off.shape[0])]
+    cfg = CoherentDSPConfig(SpS_in=16, L=250, nTrain=n_train, mu=(5e-3, 2e-3),
+                            eqBackend="pallas", cprBackend="pallas", runCR=True,
+                            crMethod="gardner", crBackend="pallas", crNyquist=True,
+                            crKp=2e-3, crKi=1e-5)
+    return sig_off, d_cr, cfg
+
+
+def run_cr_path_a(dev, res, n_train=12000):
+    """Path A: the centre channel at a receiver clock PPM_A fast, Gardner
+    clock recovery on K6 in coherent_dsp_chain; the same signal without
+    clock recovery as the control."""
+    from dataclasses import replace
+    from unittest import mock
+
+    from opticommpy_torch.kernels import gardner
+    from opticommpy_torch.pipelines import coherent_dsp_chain
+
+    sig_off, d_cr, cfg = path_a_inputs(res, n_train)
+    _reset_counts()
+    (y, phases), first_s = _wall(lambda: coherent_dsp_chain(sig_off, d_cr, cfg))
+    counts = _counts()
+    print(f"path A launches: {counts}")
+    _check(counts == _expect(gardner=1, mimo_eq=3, bps=1),
+           f"path A: launches {counts}, expected K6 1, K2 3, K1 1")
+    _check(tuple(y.shape) == tuple(d_cr.shape) and y.is_cuda and bool(torch.isfinite(y).all()),
+           f"path A: unexpected output {tuple(y.shape)}")
+    (y2, _), warm_s = _wall(lambda: coherent_dsp_chain(sig_off, d_cr, cfg))
+    same = bool(torch.equal(y, y2))
+    # K6 against its plain version on the input it got on path A (the
+    # chain's post-EDC signal, padded), and its time there
+    with mock.patch.object(gardner, "gardner_records", wraps=gardner.gardner_records) as k6:
+        coherent_dsp_chain(sig_off, d_cr, cfg)
+    args = k6.call_args.args
+    eo_k, tv_k, n_k = gardner.gardner_records(*args)
+    (eo_p, tv_p, n_p), plain_s = _wall(lambda: gardner.gardner_plain(*args))
+    e_err = float((eo_k - eo_p).abs().max())
+    t_err = float((tv_k - tv_p).abs().max())
+    same_n = bool(torch.equal(n_k, n_p))
+    ms = _cuda_ms(lambda: gardner.gardner_records(*args), 3)
+    n_in = args[0].shape[0]
+    print(f"K6 gardner on path A's input ({n_in} x 2 samples, nyquist): max |eo err| "
+          f"{e_err:.3e}, max |t err| {t_err:.3e}, n_final equal {same_n} {n_k.tolist()}, "
+          f"kernel {ms:.3f} ms ({n_in / ms / 1e3:.3f} Msample/s per mode), plain "
+          f"{plain_s * 1e3:.1f} ms")
+    _check(e_err < CR_ATOL and t_err < CR_ATOL and same_n,
+           "Gardner kernel disagrees with plain on path A's input")
+    k6_report = dict(max_abs_err=max(e_err, t_err), ms=ms, plain_ms=plain_s * 1e3,
+                     cost=_gardner_cost(n_in, args[4], 2, int(n_k.sum())))
+    n_sym = d_cr.shape[0]
+    disc = n_train + 2000
+    ber, gmi, evm = _scores(y, d_cr, disc)
+    y_n, _ = coherent_dsp_chain(sig_off, d_cr, replace(cfg, runCR=False))
+    ber_n, gmi_n, _ = _scores(y_n, d_cr, disc)
+    print(f"path A ({PPM_A:.0f} ppm, {sig_off.shape[0]} samples, {n_sym} symbols): first "
+          f"{first_s:.3f} s, warm {warm_s:.3f} s, {n_sym / warm_s / 1e6:.4f} Msym/s; two runs "
+          f"bit-identical: {same}")
+    print(f"path A: BER {ber[0]:.3e} {ber[1]:.3e} (JAX {JAX_CR_A['ber'][0]:.3e} "
+          f"{JAX_CR_A['ber'][1]:.3e}), GMI {gmi[0]:.4f} {gmi[1]:.4f} (JAX "
+          f"{JAX_CR_A['gmi'][0]:.4f} {JAX_CR_A['gmi'][1]:.4f}), EVM {evm[0]:.4f} {evm[1]:.4f}; "
+          f"without clock recovery BER {ber_n[0]:.3e} {ber_n[1]:.3e}, GMI {gmi_n[0]:.4f} "
+          f"{gmi_n[1]:.4f} (JAX {JAX_CR_A['no_cr_ber'][0]:.3e} {JAX_CR_A['no_cr_ber'][1]:.3e})")
+    for p in range(2):
+        _check(ber[p] <= 2 * JAX_CR_A["ber"][p] + 1e-4,
+               f"path A: BER {ber[p]} above 2 x JAX {JAX_CR_A['ber'][p]} + 1e-4 (pol {p})")
+        _check(gmi[p] >= JAX_CR_A["gmi"][p] - 0.05,
+               f"path A: GMI {gmi[p]} below JAX {JAX_CR_A['gmi'][p]} - 0.05 (pol {p})")
+    return dict(counts=counts, warm_s=warm_s, n_sym=n_sym, k6=k6_report)
+
+
+def _median_check(name, rows, failures):
+    """Print every channel and polarization; hold the medians over them to
+    the JAX package's (its realization differs)."""
+    jax_ber, jax_gmi = JAX_CR_BC[name]["ber"], JAX_CR_BC[name]["gmi"]
+    for k, (ber, gmi, evm) in enumerate(rows):
+        print(f"  {name} ch {k:2d}: BER {ber[0]:.3e} {ber[1]:.3e} (JAX {jax_ber[k][0]:.3e} "
+              f"{jax_ber[k][1]:.3e}), GMI {gmi[0]:.4f} {gmi[1]:.4f} (JAX {jax_gmi[k][0]:.4f} "
+              f"{jax_gmi[k][1]:.4f}), EVM {evm[0]:.4f} {evm[1]:.4f}")
+    med_ber = float(np.median([r[0] for r in rows]))
+    med_gmi = float(np.median([r[1] for r in rows]))
+    j_ber, j_gmi = float(np.median(jax_ber)), float(np.median(jax_gmi))
+    n_ok = sum(int(b < 1e-3) for r in rows for b in r[0])
+    n_ok_jax = sum(int(b < 1e-3) for r in jax_ber for b in r)
+    print(f"{name}: median BER {med_ber:.3e} (JAX {j_ber:.3e}), median GMI {med_gmi:.4f} "
+          f"(JAX {j_gmi:.4f}); polarizations with BER < 1e-3: {n_ok} of {2 * len(rows)} "
+          f"(JAX {n_ok_jax})")
+    if not (med_ber <= 2 * j_ber + 1e-4 and med_gmi >= j_gmi - 0.05):
+        failures.append(f"{name}: median BER {med_ber:.3e} GMI {med_gmi:.4f} vs JAX "
+                        f"{j_ber:.3e} {j_gmi:.4f}")
+
+
+def path_b_inputs(res, sig_b, ref_b, n_train=12000):
+    """(channel k of ``sig_b`` at a receiver clock PPM_B[k] fast, all cut
+    to the shortest; the references trimmed; the batch chain's config)."""
+    from opticommpy_torch.ops import clock_sampling_interp
+    from opticommpy_torch.pipelines import CoherentDSPConfig
+
+    fs = 16 * 32e9
+    offs = [clock_sampling_interp(sig_b[k], fs, fs * (1 + PPM_B[k] * 1e-6),
+                                  jitter_rms=1e-3 / fs, generator=res["gen"])
+            for k in range(sig_b.shape[0])]
+    n = min(o.shape[0] for o in offs)
+    cfg = CoherentDSPConfig(SpS_in=16, L=250, nTrain=n_train, mu=(5e-3, 2e-3),
+                            eqBackend="pallas", cprBackend="pallas", runCR=True,
+                            crMethod="ffw")
+    return torch.stack([o[:n] for o in offs]), ref_b[:, :_retained(n)], cfg
+
+
+def run_cr_path_b(dev, res, sig_b, ref_b, n_train=12000):
+    """Path B: channel k of the WDM receiver at its own clock offset PPM_B[k],
+    feedforward clock recovery in coherent_dsp_chain_batch (K3, K1; no K6);
+    each channel against the same chain on the CPU, the medians against
+    the JAX package."""
+    from unittest import mock
+
+    from opticommpy_torch import pipelines
+    from opticommpy_torch.dsp.clock_recovery import ffw_clock_recovery
+    from opticommpy_torch.pipelines import coherent_dsp_chain_batch
+
+    sig_o, ref_o, cfg = path_b_inputs(res, sig_b, ref_b, n_train)
+    _reset_counts()
+    (y, phases), first_s = _wall(lambda: coherent_dsp_chain_batch(sig_o, ref_o, cfg))
+    counts = _counts()
+    print(f"path B launches: {counts}")
+    _check(counts == _expect(mimo_eq_batch=3, bps=1),
+           f"path B: launches {counts}, expected K3 3, K1 1, K6 0")
+    _check(tuple(y.shape) == tuple(ref_o.shape) and bool(torch.isfinite(y).all()),
+           f"path B: unexpected output {tuple(y.shape)}")
+    (_, _), warm_s = _wall(lambda: coherent_dsp_chain_batch(sig_o, ref_o, cfg))
+    n_sym = ref_o.shape[1]
+    print(f"path B ({sig_o.shape[0]} channels at {PPM_B[0]:.0f} .. "
+          f"{PPM_B[sig_o.shape[0] - 1]:.0f} ppm, {n_sym} symbols): "
+          f"first {first_s:.3f} s, warm {warm_s:.3f} s, "
+          f"{sig_o.shape[0] * n_sym / warm_s / 1e6:.4f} Msym/s aggregate")
+    # the clock estimates, from the signals the chain retimed
+    with mock.patch.object(pipelines, "ffw_clock_recovery",
+                           wraps=pipelines.ffw_clock_recovery) as ffw:
+        coherent_dsp_chain_batch(sig_o, ref_o, cfg)
+    ppm_est = [float(ffw_clock_recovery(*c.args, return_est=True)[1][0])
+               for c in ffw.call_args_list]
+    print("path B clock estimates (ppm): "
+          + ", ".join(f"ch {k} {PPM_B[k]:.0f} -> {p:.4f}" for k, p in enumerate(ppm_est)))
+    # the same chain on the same input on the CPU (the kernels' plain
+    # versions): the per-channel reference
+    disc = n_train + 2000
+    (y_cpu, _), cpu_s = _wall(lambda: coherent_dsp_chain_batch(sig_o.cpu(), ref_o.cpu(), cfg))
+    d = (y.cpu() - y_cpu).abs()
+    print(f"path B on the CPU (plain versions): {cpu_s:.1f} s, CUDA vs CPU max |diff| "
+          f"{float(d.max()):.3e}, share > 1e-3: {float((d > 1e-3).float().mean()):.2e}")
+    failures = []
+    rows = [_scores(y[k], ref_o[k], disc) for k in range(y.shape[0])]
+    for k, (ber, gmi, _) in enumerate(rows):
+        c_ber, c_gmi, _ = _scores(y_cpu[k], ref_o[k].cpu(), disc)
+        print(f"  B ffw ch {k:2d}: BER {ber[0]:.3e} {ber[1]:.3e} (CPU {c_ber[0]:.3e} "
+              f"{c_ber[1]:.3e}), GMI {gmi[0]:.4f} {gmi[1]:.4f} (CPU {c_gmi[0]:.4f} "
+              f"{c_gmi[1]:.4f})")
+        for p in range(2):
+            if not (ber[p] <= 2 * c_ber[p] + 1e-4 and gmi[p] >= c_gmi[p] - 0.05):
+                failures.append(f"B ffw ch {k} pol {p}: BER {ber[p]:.3e} GMI {gmi[p]:.4f} vs "
+                                f"CPU {c_ber[p]:.3e} {c_gmi[p]:.4f}")
+    _median_check("B ffw", rows, failures)
+    return dict(counts=counts, warm_s=warm_s, failures=failures, ppm_est=ppm_est)
+
+
+def serve_inputs(res, n_channels=11):
+    """Path C's inputs: every channel with its LO at its grid frequency,
+    resampled to 64 GS/s. Returns (signals (B, N, 2), training front end
+    pnorm(edc(fir_filter(rrc at SpS 2, x))) (B, N, 2), synchronized
+    references, the front end's pnorm scalars (B,), the matched filter, the
+    EDC config)."""
+    from opticommpy_torch.dsp import EDCConfig, edc
+    from opticommpy_torch.models import (LaserConfig, PDMFrontendConfig, basic_laser_model,
+                                         pdm_coherent_receiver)
+    from opticommpy_torch.models.tx import wdm_freq_grid
+    from opticommpy_torch.ops import fir_filter, pnorm, pulse_shape, resample, symbol_sync
+
+    sig_ch, gen = res["sig_ch"], res["gen"]
+    fs = 16 * 32e9
+    edc_cfg = EDCConfig(L=250, D=16, Fs=64e9, Rs=32e9)
+    pulse2 = pulse_shape("rrc", 2, 1024, 0.01).astype(np.float32)
+    xs, fronts, scales, refs = [], [], [], []
+    for k, f_k in enumerate(wdm_freq_grid(n_channels, 37.5e9)):
+        lo = basic_laser_model(LaserConfig(P=10.0, lw=100e3, Ns=sig_ch.shape[0], Fs=fs,
+                                           freqShift=float(f_k), RIN_var=0.0), gen)
+        sig_rx = pdm_coherent_receiver(sig_ch, lo, PDMFrontendConfig(Fs=fs), generator=gen)
+        x = resample(sig_rx, fs, 64e9)
+        pre = edc(fir_filter(pulse2, x), edc_cfg)
+        s = torch.sqrt(torch.mean((pre * pre.conj()).real))
+        refs.append(pnorm(symbol_sync(pre, res["symb_tx"][:, :, k], 2)))
+        xs.append(x)
+        fronts.append(pre / s)
+        scales.append(s)
+    return (torch.stack(xs), torch.stack(fronts), torch.stack(refs), torch.stack(scales),
+            pulse2, edc_cfg)
+
+
+def run_serve_path_c(dev, res, n_train=12000, n_channels=11):
+    """Path C: every channel with its LO at its grid frequency, resampled to
+    64 GS/s; taps trained by mimo_adapt_equalizer_batch (K3) on the serving
+    front end, then coherent_dsp_serve (K1) and the DD-PLL (K7) over the 22
+    columns of the served symbols."""
+    from opticommpy_torch.dsp import (CPRConfig, MIMOEqualizerConfig, cpr, edc,
+                                      mimo_adapt_equalizer_batch)
+    from opticommpy_torch.dsp.carrier_recovery import unwrap
+    from opticommpy_torch.dsp.equalization import mimo_apply, mimo_apply_fused
+    from opticommpy_torch.kernels.bps import bps_kernel
+    from opticommpy_torch.ops import fir_filter
+    from opticommpy_torch.pipelines import CoherentDSPConfig, _norm_const, coherent_dsp_serve
+
+    t0 = time.perf_counter()
+    x_b, front_b, ref_b, scale_b, pulse2, edc_cfg = serve_inputs(res, n_channels)
+    torch.cuda.synchronize()
+    rx_s = time.perf_counter() - t0
+    n_sym = ref_b.shape[1]
+    eq_cfg = MIMOEqualizerConfig(nTaps=15, SpS=2, mu=(5e-3, 2e-3), alg=("da-rde", "dd-lms"),
+                                 L=(n_train, n_sym - n_train), M=16, numIter=2,
+                                 backend="pallas")
+    _reset_counts()
+    (_, H_b, _), train_s = _wall(lambda: mimo_adapt_equalizer_batch(
+        front_b, eq_cfg, symb_ref=ref_b, return_results=True))
+    train_counts = _counts()
+    print(f"path C: receive + resample {rx_s:.3f} s; training launches {train_counts}, "
+          f"{train_s:.3f} s")
+    _check(train_counts == _expect(mimo_eq_batch=3), f"path C training: {train_counts}")
+
+    cfg = CoherentDSPConfig(SpS_in=16, L=250, nTrain=n_train, mu=(5e-3, 2e-3))
+    _reset_counts()
+    (out, phases), serve_first_s = _wall(lambda: coherent_dsp_serve(x_b, H_b, cfg, scale_b))
+    serve_counts = _counts()
+    print(f"path C serve launches: {serve_counts}")
+    _check(serve_counts == _expect(bps=1), f"path C serve: {serve_counts}, expected K1 1")
+    n_cols = 2 * n_channels
+    _check(tuple(out.shape) == (n_channels, n_sym, 2) and tuple(phases.shape) == (n_sym, n_cols)
+           and bool(torch.isfinite(out).all()), f"path C serve: output {tuple(out.shape)}")
+    (out2, _), serve_s = _wall(lambda: coherent_dsp_serve(x_b, H_b, cfg, scale_b))
+    same = bool(torch.equal(out, out2))
+    print(f"path C serve: first {serve_first_s:.3f} s, warm {serve_s:.3f} s, "
+          f"{n_channels * n_sym / serve_s / 1e6:.4f} Msym/s aggregate ({n_channels} x {n_sym} "
+          f"symbols); two "
+          f"runs bit-identical: {same}")
+    # the staged composition on the card: fir_filter, edc, pnorm, mimo_apply,
+    # BPS on K1 (one launch per channel), unwrap, derotation
+    rel = []
+    for k in sorted({0, n_channels // 2, n_channels - 1}):
+        y_k = mimo_apply(H_b[k], edc(fir_filter(pulse2, x_b[k]), edc_cfg) / scale_b[k], 2)
+        ph = unwrap(4 * bps_kernel(y_k, 37, _norm_const(16), 64), dim=0) / 4
+        ref_k = (y_k * torch.exp(1j * ph))[32:n_sym - 612]
+        rel.append(float(torch.linalg.norm(out[k, 32:n_sym - 612] - ref_k)
+                         / torch.linalg.norm(ref_k)))
+    print(f"path C serve vs the staged mimo_apply + BPS composition (first, centre, last): "
+          f"relative error {', '.join(f'{v:.3e}' for v in rel)}")
+    _check(max(rel) < SERVE_REL, f"path C serve disagrees with the staged composition: {rel}")
+
+    y_cols = torch.stack([mimo_apply_fused(H_b[k], x_b[k], 2, pre=pulse2, edc_config=edc_cfg,
+                                           scale=scale_b[k]) for k in range(n_channels)],
+                         dim=1).reshape(n_sym, n_cols)
+    r_cols = ref_b.transpose(0, 1).reshape(n_sym, n_cols)
+    cpr_cfg = CPRConfig(alg="ddpll-pallas", M=16, Ts=1 / 32e9, runFOE=False)
+    pilots = np.arange(0, n_sym, PILOT_EVERY)
+    _reset_counts()
+    pll, pll_s = _wall(lambda: cpr(y_cols, cpr_cfg, symb_tx=r_cols, pilot_ind=pilots))
+    pll_counts = _counts()
+    print(f"path C DD-PLL launches: {pll_counts}, {pll_s:.3f} s for {n_cols} x {n_sym} symbols")
+    _check(pll_counts == _expect(ddpll=1), f"path C DD-PLL: {pll_counts}, expected K7 1")
+    pll = pll.reshape(n_sym, n_channels, 2).transpose(0, 1)
+    failures = []
+    disc = n_train + 2000
+    _median_check("C serve", [_scores(out[k], ref_b[k], disc) for k in range(n_channels)],
+                  failures)
+    _median_check("C ddpll", [_scores(pll[k], ref_b[k], disc) for k in range(n_channels)],
+                  failures)
+    return dict(train_counts=train_counts, serve_counts=serve_counts, pll_counts=pll_counts,
+                serve_s=serve_s, train_s=train_s, pll_s=pll_s, failures=failures)
+
+
+
 def main():
     dev = phase_device()
     phase_build()
@@ -560,8 +1142,15 @@ def main():
     from opticommpy_torch.pipelines import _norm_const
 
     const = _norm_const(16)
+    phase_s = {}
+    t0 = time.perf_counter()
     report = phase_kernels_vs_plain(dev, const)
     report.update(phase_batch_kernels_vs_plain(dev, const))
+    phase_s["K1-K5 vs plain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report.update(phase_clock_pll_kernels(dev, const))
+    phase_s["K6, K7 vs plain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     bps.launches = 0
     mimo_eq.launches = 0
@@ -623,9 +1212,33 @@ def main():
     print(f"SSFM warm: {ssfm_warm:.3f} s, {n_samples / ssfm_warm:.4e} samples/s")
     print(f"DSP chain warm: {dsp_warm:.3f} s, {n_sym / dsp_warm / 1e6:.4f} Msym/s")
 
+    phase_s["main path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     wdm = run_wdm_paths(dev, res)
+    phase_s["WDM batch chains"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     psk_counts = run_psk_path(dev)
+    phase_s["8-PSK path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_a = run_cr_path_a(dev, res)
+    k6 = path_a["k6"]
+    report["gardner"] = _with_bound(
+        dict(max_abs_err=max(k6["max_abs_err"], report.pop("gardner_short_err")), ms=k6["ms"],
+             plain_ms=k6["plain_ms"]), *k6["cost"])
+    phase_s["path A"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sig_b, ref_b = wdm.pop("received")
+    path_b = run_cr_path_b(dev, res, sig_b, ref_b)
+    del sig_b, ref_b
+    phase_s["path B"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_c = run_serve_path_c(dev, res)
+    phase_s["path C"] = time.perf_counter() - t0
+    for name, sec in phase_s.items():
+        print(f"phase time: {name} {sec:.1f} s")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    failures = path_b["failures"] + path_c["failures"]
+    _check(not failures, "bounds against the JAX package failed:\n  " + "\n  ".join(failures))
 
     kernels = [
         dict(name="bps", route="cuda", source="opticommpy_torch/csrc/bps.cu",
@@ -644,6 +1257,12 @@ def main():
         dict(name="rls_batch", route="cuda", source="opticommpy_torch/csrc/rls.cu",
              replaces="opticommpy_tpu/kernels/rls_pallas.py:367",
              launches=wdm["rls/dd-rls"]["counts"]["rls_batch"], **report["rls_batch"]),
+        dict(name="gardner", route="cuda", source="opticommpy_torch/csrc/gardner.cu",
+             replaces="opticommpy_tpu/kernels/gardner_pallas.py:167",
+             launches=path_a["counts"]["gardner"], **report["gardner"]),
+        dict(name="ddpll", route="cuda", source="opticommpy_torch/csrc/ddpll.cu",
+             replaces="opticommpy_tpu/kernels/ddpll_pallas.py:106",
+             launches=path_c["pll_counts"]["ddpll"], **report["ddpll"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from opticommpy_torch.utils.rng import default_device
+
 __all__ = ["config_from_jax", "port_config_classes", "taps_from_numpy",
            "taps_to_numpy", "sd_from_numpy", "sd_to_numpy"]
 
@@ -25,6 +27,8 @@ __all__ = ["config_from_jax", "port_config_classes", "taps_from_numpy",
 def port_config_classes():
     """{class name: port config class} for every config the port copies."""
     from opticommpy_torch.dsp.carrier_recovery import CPRConfig
+    from opticommpy_torch.dsp.clock_recovery import (ClockRecoveryConfig,
+                                                     FFWClockRecoveryConfig)
     from opticommpy_torch.dsp.equalization import EDCConfig, MIMOEqualizerConfig
     from opticommpy_torch.models import config as model_config
     from opticommpy_torch.models.tx import WDMTxConfig
@@ -33,7 +37,7 @@ def port_config_classes():
     classes = [obj for obj in vars(model_config).values()
                if dataclasses.is_dataclass(obj) and isinstance(obj, type)]
     classes += [WDMTxConfig, EDCConfig, MIMOEqualizerConfig, CPRConfig,
-                CoherentDSPConfig]
+                CoherentDSPConfig, ClockRecoveryConfig, FFWClockRecoveryConfig]
     return {cls.__name__: cls for cls in classes}
 
 
@@ -58,12 +62,12 @@ def _complex_tensor(a, what, device):
     if a.ndim not in (3, 4):
         raise ValueError(f"{what} must have 3 dimensions, or 4 for a batch, "
                          f"got {a.shape}")
-    return torch.as_tensor(a.astype(np.complex64), device=device)
+    return torch.as_tensor(a.astype(np.complex64), device=default_device(device))
 
 
 def taps_from_numpy(H, device=None):
     """Equalizer taps (modes, modes, taps), or (B, modes, modes, taps), as a
-    complex64 tensor."""
+    complex64 tensor on ``device`` (the CUDA device when none is named)."""
     return _complex_tensor(H, "H", device)
 
 
@@ -74,7 +78,7 @@ def taps_to_numpy(H):
 
 def sd_from_numpy(Sd, device=None):
     """RLS state Sd (modes, taps, taps), or (B, modes, taps, taps), as a
-    complex64 tensor."""
+    complex64 tensor on ``device`` (the CUDA device when none is named)."""
     return _complex_tensor(Sd, "Sd", device)
 
 

@@ -1,12 +1,22 @@
-"""Receiver DSP: equalization and carrier recovery (port of ``opticommpy_tpu/dsp``)."""
+"""Receiver DSP: equalization, carrier and clock recovery (port of
+``opticommpy_tpu/dsp``)."""
 
 from opticommpy_torch.dsp.carrier_recovery import (  # noqa: F401
     CPRConfig,
     bps,
     cpr,
+    ddpll,
     fourth_power_foe,
     residual_linewidth,
     unwrap,
+    viterbi,
+)
+from opticommpy_torch.dsp.clock_recovery import (  # noqa: F401
+    ClockRecoveryConfig,
+    FFWClockRecoveryConfig,
+    calc_clock_drift,
+    ffw_clock_recovery,
+    gardner_clock_recovery,
 )
 from opticommpy_torch.dsp.equalization import (  # noqa: F401
     EDCConfig,
@@ -15,4 +25,6 @@ from opticommpy_torch.dsp.equalization import (  # noqa: F401
     edc,
     mimo_adapt_equalizer,
     mimo_adapt_equalizer_batch,
+    mimo_apply,
+    mimo_apply_fused,
 )

@@ -1,8 +1,11 @@
-"""Carrier phase and frequency recovery: BPS and 4th-power FOE.
+"""Carrier phase and frequency recovery: BPS, DD-PLL, Viterbi & Viterbi,
+4th-power FOE.
 
-Port of ``opticommpy_tpu/dsp/carrier_recovery.py`` (the part the coherent
-main path uses), plus :func:`unwrap`, the counterpart of ``jnp.unwrap``
-that torch lacks.
+Port of ``opticommpy_tpu/dsp/carrier_recovery.py``, plus :func:`unwrap`, the
+counterpart of ``jnp.unwrap`` that torch lacks. :func:`ddpll` is the
+reference's per-symbol PLL rule on any device; ``cpr(alg="ddpll-pallas")``
+runs the DD-PLL on the Hopper kernel (``kernels/ddpll.py``, K7) for a CUDA
+tensor, and ``alg="bps-pallas"`` BPS on K1.
 """
 
 import math
@@ -13,11 +16,11 @@ import torch
 
 from opticommpy_torch.comm.modulation import gray_mapping
 from opticommpy_torch.comm.sources import symbol_pmf
-from opticommpy_torch.ops.signal import fftfreq, pnorm
+from opticommpy_torch.ops.signal import fftfreq, moving_average, pnorm
 from opticommpy_torch.utils.scan import cumsum
 
-__all__ = ["CPRConfig", "cpr", "bps", "fourth_power_foe", "residual_linewidth",
-           "unwrap"]
+__all__ = ["CPRConfig", "cpr", "bps", "ddpll", "viterbi", "fourth_power_foe",
+           "residual_linewidth", "unwrap"]
 
 
 @dataclass(frozen=True)
@@ -82,6 +85,86 @@ def bps(sig, n_half, const_symb, n_phases):
     return est[:, 0] if squeeze else est
 
 
+def ddpll(sig, ts, kv, tau1, tau2, const_symb, symb_tx=None, pilot_ind=None):
+    """Decision-directed PLL with 2nd-order loop filter (carrierRecovery.py:226).
+
+    The reference rule: per symbol, ``eo = x e^{j phi}``, the nearest
+    constellation point by ``argmin |eo - c|`` (or the known symbol on a
+    ``pilot_ind`` row), ``u_d = Im(eo conj(target))``, the loop filter and
+    ``phi <- phi - kv u_f``; all columns at once. The loop coefficients are
+    computed in float32, as the JAX package's jitted function computes them.
+    Returns the phase before each update, (N,) or (N, modes).
+
+    The rotation and the products are written out in real float32
+    operations, so every column's result is the same whether it runs alone
+    or beside others (complex ``exp`` and products are vectorized by width
+    on the CPU). This is also the plain version of the K7 kernel
+    (``kernels/ddpll.py``), whose packed columns are bit-identical per signal.
+    """
+    sig = torch.as_tensor(sig)
+    squeeze = sig.ndim == 1
+    if squeeze:
+        sig = sig[:, None]
+    dev = sig.device
+    n = sig.shape[0]
+    const = torch.as_tensor(const_symb).to(dev, torch.complex64)
+    ref = (torch.zeros_like(sig) if symb_tx is None
+           else torch.as_tensor(symb_tx).to(dev, sig.dtype))
+    if ref.ndim == 1:
+        ref = ref[:, None]
+    is_pilot = [False] * n
+    for i in np.atleast_1d(np.asarray(pilot_ind if pilot_ind is not None else [], int)):
+        is_pilot[int(i)] = True
+    f32 = dict(dtype=torch.float32, device=dev)
+    ts, kv, tau1, tau2 = (torch.tensor(v, **f32) for v in (ts, kv, tau1, tau2))
+    cot = 1 / torch.tan(ts / (2 * tau2))
+    a1 = ts / (2 * tau1) * (1 - cot)
+    a2 = ts / (2 * tau1) * (1 + cot)
+    x_re, x_im = sig.real.to(torch.float32), sig.imag.to(torch.float32)
+    r_re, r_im = ref.real.to(torch.float32), ref.imag.to(torch.float32)
+    c_re, c_im = const.real, const.imag
+    phi = torch.zeros(sig.shape[1], **f32)
+    u_f = torch.zeros_like(phi)
+    u_d = torch.zeros_like(phi)
+    out = torch.empty((n, sig.shape[1]), **f32)
+    for k in range(n):
+        u_d1 = u_d
+        cs, sn = torch.cos(phi), torch.sin(phi)
+        eo_re = x_re[k] * cs - x_im[k] * sn
+        eo_im = x_re[k] * sn + x_im[k] * cs
+        if is_pilot[k]:
+            t_re, t_im = r_re[k], r_im[k]
+        else:
+            dr, di = eo_re[:, None] - c_re, eo_im[:, None] - c_im
+            ind = torch.argmin(dr * dr + di * di, dim=1)
+            t_re, t_im = c_re[ind], c_im[ind]
+        u_d = eo_im * t_re - eo_re * t_im
+        u_f = u_f + a1 * u_d1 + a2 * u_d
+        out[k] = phi
+        phi = phi - kv * u_f
+    return out[:, 0] if squeeze else out
+
+
+def _integer_pow(x, p):
+    """``x ** p`` by repeated squaring, in the order of ``lax.integer_pow``."""
+    acc = None
+    while p > 0:
+        if p & 1:
+            acc = x if acc is None else acc * x
+        p >>= 1
+        if p > 0:
+            x = x * x
+    return acc
+
+
+def viterbi(sig, n_win=35, m_power=4):
+    """Viterbi & Viterbi M-th power phase estimation (carrierRecovery.py:303)."""
+    sig = torch.as_tensor(sig)
+    ma = moving_average(_integer_pow(sig, m_power), n_win)
+    return (-unwrap(torch.angle(ma) / m_power, dim=0, period=2 * math.pi / m_power)
+            - math.pi / 4)
+
+
 def fourth_power_foe(sig, fs, m_power=4):
     """M-th power frequency offset estimation + compensation (carrierRecovery.py:331).
 
@@ -93,12 +176,7 @@ def fourth_power_foe(sig, fs, m_power=4):
         sig = sig[:, None]
     n = sig.shape[0]
     f = fftfreq(n, 1.0, torch.float32, sig.device) * fs
-    if m_power == 4:
-        sq = sig * sig
-        powered = sq * sq  # the squaring order of lax.integer_pow
-    else:
-        powered = sig ** m_power
-    spec = torch.abs(torch.fft.fft(powered, dim=0))
+    spec = torch.abs(torch.fft.fft(_integer_pow(sig, m_power), dim=0))
     fo = f[torch.argmax(spec, dim=0)] / m_power  # (modes,)
     t = torch.arange(n, dtype=torch.float32, device=sig.device)[:, None] / fs
     out = sig * torch.exp(1j * ((-2 * math.pi * fo)[None, :] * t))
@@ -122,13 +200,11 @@ def cpr(sig, config: CPRConfig = CPRConfig(), symb_tx=None, pilot_ind=None,
         return_phases=False, return_linewidth=False):
     """Carrier phase recovery dispatcher (reference carrierRecovery.py:37).
 
-    Optionally runs 4th-power FOE first, then BPS ('bps', or 'bps-pallas'
-    for the fused kernel), unwraps the 4x phase, and derotates.
+    Optionally runs 4th-power FOE first, then the selected algorithm ('bps',
+    'bps-pallas' on K1, 'ddpll', 'ddpll-pallas' on K7, 'viterbi'), unwraps
+    the 4x phase, and derotates. ``return_linewidth=True`` appends the
+    :func:`residual_linewidth` estimate [Hz].
     """
-    if config.alg not in ("bps", "bps-pallas"):
-        raise NotImplementedError(
-            f"cpr alg={config.alg!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 9); 'bps' and 'bps-pallas' are")
     sig = torch.as_tensor(sig)
     squeeze = sig.ndim == 1
     if squeeze:
@@ -145,10 +221,25 @@ def cpr(sig, config: CPRConfig = CPRConfig(), symb_tx=None, pilot_ind=None,
         sig = pnorm(sig)
     if config.alg == "bps":
         phase_est = bps(sig, config.N // 2, torch.as_tensor(const), config.B)
-    else:
+    elif config.alg == "bps-pallas":
         from opticommpy_torch.kernels.bps import bps_kernel
 
         phase_est = bps_kernel(sig, config.N // 2, torch.as_tensor(const), config.B)
+    elif config.alg == "ddpll":
+        phase_est = ddpll(sig, config.Ts, config.Kv, config.tau1, config.tau2,
+                          torch.as_tensor(const), symb_tx, pilot_ind)
+    elif config.alg == "ddpll-pallas":
+        from opticommpy_torch.kernels.ddpll import ddpll_kernel
+
+        phase_est = ddpll_kernel(sig, config.Ts, config.Kv, config.tau1, config.tau2,
+                                 const, symb_tx, pilot_ind)
+    elif config.alg == "viterbi":
+        if config.constType == "psk":
+            phase_est = viterbi(sig, config.N, config.M) + math.pi / 4
+        else:
+            phase_est = viterbi(sig, config.N)
+    else:
+        raise ValueError("CPR algorithm incorrectly specified.")
     phase_est = unwrap(4 * phase_est, dim=0) / 4
     out = pnorm(sig * torch.exp(1j * phase_est))
     lw = residual_linewidth(phase_est, config.Ts) if return_linewidth else None

@@ -17,10 +17,14 @@ Port of ``opticommpy_tpu/dsp/equalization.py``, part A:
   kernel pass serves all B signals (gradient rules on K3, RLS on K5).
 - :class:`MIMOEqualizer` — the trainer as a module with ``H`` and ``Sd``
   buffers.
+- :func:`mimo_apply` — frozen taps applied as one frequency-domain filter
+  bank (the result of the ``static`` rule), and :func:`mimo_apply_fused`,
+  which folds a matched filter, CD compensation and the power
+  normalization into the same filter.
 
-Not ported yet (they raise ``NotImplementedError``): the static rule,
-``runWL``, ``blockUpdate > 1`` and, in the single-signal trainer,
-``storeCoeff`` (ROADMAP.md queue 1, item 8).
+Not ported yet (they raise ``NotImplementedError``): ``runWL``,
+``blockUpdate > 1`` and, in the single-signal trainer, ``storeCoeff``
+(ROADMAP.md queue 1, item 8).
 """
 
 from dataclasses import dataclass
@@ -34,9 +38,10 @@ from opticommpy_torch.kernels import mimo_eq, rls
 from opticommpy_torch.kernels.bps import _square_qam_levels
 from opticommpy_torch.models.channels import fiber_coefficients
 from opticommpy_torch.ops.filtering import overlap_save
+from opticommpy_torch.utils.rng import default_device
 
 __all__ = ["edc", "EDCConfig", "mimo_adapt_equalizer", "mimo_adapt_equalizer_batch",
-           "MIMOEqualizerConfig", "MIMOEqualizer"]
+           "MIMOEqualizerConfig", "MIMOEqualizer", "mimo_apply", "mimo_apply_fused"]
 
 
 @dataclass(frozen=True)
@@ -52,27 +57,34 @@ class EDCConfig:
     Nfft: int = None
 
 
+def _edc_response(config):
+    """The inverse CD response ``exp(-j*b2/2*w^2*L)`` (NumPy complex128) on
+    the auto-sized tap grid (Savory's rule) unless ``NfilterCoeffs`` is set."""
+    if config.Fs is None:
+        raise ValueError("Simulation sampling frequency (Fs) not provided.")
+    _, beta2 = fiber_coefficients(0.0, config.D, config.Fc)
+    n_coeffs = config.NfilterCoeffs
+    if n_coeffs is None:
+        n_coeffs = int(2 * np.ceil(6.67 * np.abs(beta2) * config.L * config.Rs**2
+                                   * (config.Fs / config.Rs)))
+    w = 2 * np.pi * config.Fs * np.fft.fftfreq(n_coeffs)
+    return np.exp(-1j * (beta2 / 2) * (w**2) * config.L)
+
+
 def edc(sig, config: EDCConfig):
     """Electronic chromatic dispersion compensation (reference equalization.py:36).
 
     The inverse CD response ``H = exp(-j*b2/2*w^2*L)`` on an auto-sized tap
     grid (Savory's rule), applied by one FFT convolution over all modes.
     """
-    if config.Fs is None:
-        raise ValueError("Simulation sampling frequency (Fs) not provided.")
     sig = torch.as_tensor(sig)
-    _, beta2 = fiber_coefficients(0.0, config.D, config.Fc)
-    n_coeffs = config.NfilterCoeffs
-    if n_coeffs is None:
-        n_coeffs = int(2 * np.ceil(6.67 * np.abs(beta2) * config.L * config.Rs**2
-                                   * (config.Fs / config.Rs)))
+    Hcd = _edc_response(config)
+    n_coeffs = Hcd.shape[0]
     nfft = config.Nfft
     if nfft is None:
         nfft = min(max(8 * 2 ** int(np.ceil(np.log2(n_coeffs))), 16384),
                    2 ** int(np.ceil(np.log2(sig.shape[0] + n_coeffs))))
-    w = 2 * np.pi * config.Fs * np.fft.fftfreq(n_coeffs)
-    H = torch.as_tensor(np.exp(-1j * (beta2 / 2) * (w**2) * config.L)
-                        .astype(np.complex64), device=sig.device)
+    H = torch.as_tensor(Hcd.astype(np.complex64), device=sig.device)
     if config.Nfft is None and sig.shape[0] + n_coeffs <= 2**22:
         squeeze = sig.ndim == 1
         x = sig[:, None] if squeeze else sig
@@ -136,9 +148,7 @@ def _check_config(config):
     if config.backend not in ("scan", "pallas"):
         raise ValueError(f"unknown backend {config.backend!r}")
     for alg in config.alg:
-        if alg == "static":
-            raise _unported("the static rule")
-        if alg not in _KERNEL_STAGE_ALGS + _RLS_ALGS:
+        if alg not in _KERNEL_STAGE_ALGS + _RLS_ALGS + ("static",):
             raise ValueError(
                 "Equalization algorithm not specified (or incorrectly specified).")
 
@@ -155,7 +165,7 @@ def _adapt_eq_stage_scan(stage_slice, ref_slice, H, Sd, const, r_cma, r_rde, mu,
     for ind in range(length):
         win = stage_slice[ind * sps:ind * sps + n_taps]  # (taps, modes)
         out = torch.sum(H * win.T[None, :, :], dim=(1, 2))
-        if alg in ("nlms", "rls"):
+        if alg in ("nlms", "rls", "static"):
             err = ref_slice[ind] - out
         elif alg in ("dd-lms", "dd-rls"):
             dec = const[torch.argmin(torch.abs(out[:, None] - const[None, :]) ** 2,
@@ -179,7 +189,7 @@ def _adapt_eq_stage_scan(stage_slice, ref_slice, H, Sd, const, r_cma, r_rde, mu,
             C = (x[:, None, :] @ A)[:, 0, 0]
             Sd = (Sd - (A @ B) / (lam + C)[:, None, None]) / lam
             H = H + err[:, None, None] * (Sd @ xc)[None, :, :, 0]
-        else:
+        elif alg != "static":  # the static rule keeps its taps
             if alg == "nlms":
                 grad_err, grad_win = err, win / torch.sum(torch.abs(win) ** 2, dim=0)
             elif alg == "dd-lms":
@@ -422,6 +432,131 @@ def mimo_adapt_equalizer_batch(sig, config: MIMOEqualizerConfig = None,
     return y
 
 
+def _apply_spectrum(H, X, sps, nfft, n_sym):
+    """Frozen taps on the input spectrum ``X`` (..., modes_in, nfft).
+
+    ``y_o[s] = sum_{i,t} H[o,i,t] x[s*sps + t]``, a bank of correlations in
+    the frequency domain. The mode mixing is an elementwise complex product
+    summed over the input modes, in full float32 (never a TF32 matmul).
+    When ``nfft % sps == 0`` the symbol-rate decimation is folded into the
+    inverse transform: the wanted sampling phase (offset ``nTaps - 1``) is
+    shifted to index 0, the spectrum aliased down by ``sps``, and an
+    ``nfft/sps``-point inverse FFT runs. Returns (..., nSym, modes_out).
+    """
+    n_taps = H.shape[-1]
+    Hf = torch.fft.fft(torch.flip(H.to(torch.complex64), [-1]), n=nfft, dim=-1)
+    Yf = torch.sum(X.unsqueeze(-3) * Hf, dim=-2)  # (..., modes_out, nfft)
+    if nfft % sps == 0:
+        f32 = dict(dtype=torch.float32, device=X.device)
+        k = torch.arange(nfft, **f32)
+        ph = (torch.tensor(2 * np.pi, **f32) * k) * torch.tensor((n_taps - 1) / nfft, **f32)
+        Yf = Yf * torch.exp(1j * ph)
+        m = nfft // sps
+        folded = Yf.reshape(*Yf.shape[:-1], sps, m).sum(dim=-2) / sps
+        return torch.fft.ifft(folded, dim=-1)[..., :n_sym].transpose(-1, -2)
+    y_full = torch.fft.ifft(Yf, dim=-1)
+    return y_full[..., n_taps - 1:][..., ::sps][..., :n_sym].transpose(-1, -2)
+
+
+def mimo_apply(H, sig, sps=2):
+    """Apply a trained (frozen) MIMO tap tensor (port of the JAX ``mimo_apply``).
+
+    ``H`` (modes_out, modes_in, nTaps), ``sig`` (N, modes_in) at ``sps``
+    samples/symbol, zero-padded by nTaps//2 in front as the adaptive
+    equalizer pads it. Returns (nSym, modes_out): the output of the
+    equalizer's ``alg='static'`` rule, computed in the frequency domain.
+    """
+    sig = torch.as_tensor(sig).to(torch.complex64)
+    if sig.ndim == 1:
+        sig = sig[:, None]
+    H = torch.as_tensor(H).to(sig.device)
+    n_taps = H.shape[-1]
+    l_pad = n_taps // 2
+    n = sig.shape[0] + 2 * l_pad + sps + n_taps
+    n_sym = int(np.fix((sig.shape[0] + 2 * l_pad - n_taps) / sps + 1))
+    nfft = 1 << int(np.ceil(np.log2(n)))
+    # the tail padding is inside the FFT's own zero fill
+    sig_pad = torch.cat([sig.new_zeros((l_pad, sig.shape[1])), sig])
+    X = torch.fft.fft(sig_pad.T, n=nfft, dim=-1)
+    return _apply_spectrum(H, X, sps, nfft, n_sym)
+
+
+def _fused_response(pre, edc_config, n, n_taps, sps, device):
+    """(P (nfft,) complex64, nfft): the combined response of the 'same'
+    pre-filter, the CD compensation and the front padding of an n_taps
+    equalizer, for signals of ``n`` samples at ``sps``.
+
+    Host taps (NumPy, as designed) give a response computed in NumPy in
+    float64 and rounded once; tensor taps give one computed in complex64
+    on their device, as the JAX package does for traced taps.
+    """
+    l_pad = n_taps // 2
+    n_pad = n + 2 * l_pad + sps + n_taps  # = mimo_apply's padded length
+    parts, k_extra = [], 0
+    if pre is not None:
+        parts.append((pre, (pre.shape[0] - 1) // 2))
+        k_extra += pre.shape[0] - 1
+    if edc_config is not None:
+        ht = np.fft.fftshift(np.fft.ifft(_edc_response(edc_config))).astype(np.complex64)
+        parts.append((ht, ht.shape[0] // 2))
+        k_extra += ht.shape[0] - 1
+    nfft = 1 << int(np.ceil(np.log2(n_pad + k_extra)))
+    if all(not isinstance(taps, torch.Tensor) for taps, _ in parts):
+        kh = np.arange(nfft)
+        Pn = np.exp(-2j * np.pi * kh * (l_pad / nfft))
+        for taps, delay in parts:
+            Pn = Pn * np.fft.fft(np.asarray(taps), n=nfft) * np.exp(
+                2j * np.pi * kh * (delay / nfft))
+        return torch.as_tensor(Pn.astype(np.complex64), device=device), nfft
+    f32 = dict(dtype=torch.float32, device=device)
+    two_pi_k = torch.tensor(2 * np.pi, **f32) * torch.arange(nfft, **f32)
+    P = torch.exp(-1j * (two_pi_k * torch.tensor(l_pad / nfft, **f32)))
+    for taps, delay in parts:
+        taps = torch.as_tensor(taps).to(device, torch.complex64)
+        P = P * torch.fft.fft(taps, n=nfft) * torch.exp(
+            1j * (two_pi_k * torch.tensor(delay / nfft, **f32)))
+    return P, nfft
+
+
+def _fused_apply(H, sig, sps, P, nfft, scale):
+    """The fused front end on (..., N, modes) signals with (..., o, i, T)
+    taps and a response ``P`` from :func:`_fused_response`."""
+    n, modes = sig.shape[-2:]
+    n_taps = H.shape[-1]
+    n_sym = int(np.fix((n + 2 * (n_taps // 2) - n_taps) / sps + 1))
+    X = torch.fft.fft(sig.transpose(-1, -2), n=nfft, dim=-1) * P
+    if scale is None:
+        # Parseval: pnorm's mean power over the filtered signal (tails incl.)
+        power = torch.sum((X * X.conj()).real, dim=(-2, -1))
+        scale = torch.sqrt(power / torch.tensor(np.float32(float(nfft) * n * modes),
+                                                device=X.device))
+    else:
+        scale = torch.as_tensor(scale, dtype=torch.float32).to(X.device)
+    X = X / scale.reshape(*scale.shape, 1, 1)
+    return _apply_spectrum(H, X, sps, nfft, n_sym)
+
+
+def mimo_apply_fused(H, sig, sps=2, pre=None, edc_config=None, scale=None):
+    """Converged receiver front end in one pass: pre-filter + EDC + MIMO.
+
+    Port of the JAX ``mimo_apply_fused``: computes
+    ``mimo_apply(H, pnorm(edc(fir_filter(pre, sig), edc_config)), sps)`` with
+    one forward FFT per input mode and one folded inverse FFT per output
+    mode. ``scale`` is the power-normalization divisor; ``None`` derives it
+    from the combined spectrum by Parseval (which includes the convolution
+    tails outside the staged pnorm's window, an O(K/N) relative difference);
+    pass the training-time scalar for parity with the staged path.
+
+    Returns (nSym, modes_out) equalized symbols.
+    """
+    sig = torch.as_tensor(sig).to(torch.complex64)
+    if sig.ndim == 1:
+        sig = sig[:, None]
+    H = torch.as_tensor(H).to(sig.device)
+    P, nfft = _fused_response(pre, edc_config, sig.shape[0], H.shape[-1], sps, sig.device)
+    return _fused_apply(H, sig, sps, P, nfft, scale)
+
+
 class MIMOEqualizer(torch.nn.Module):
     """The adaptive equalizer with its taps ``H[out, in, taps]`` and RLS state
     ``Sd[in, taps, taps]`` as module state.
@@ -435,7 +570,7 @@ class MIMOEqualizer(torch.nn.Module):
     def __init__(self, config: MIMOEqualizerConfig, n_modes=2, device=None):
         super().__init__()
         self.config = config
-        H, Sd = _initial_state(1, n_modes, config.nTaps, None, device)
+        H, Sd = _initial_state(1, n_modes, config.nTaps, None, default_device(device))
         self.register_buffer("H", H[0])
         self.register_buffer("Sd", Sd[0])
 

@@ -6,6 +6,10 @@
 - :mod:`rls` — the RLS / DD-RLS recurrence, batched with the quantized
   slicer or single with the argmin slicer (replaces both kernels of
   ``kernels/rls_pallas.py``).
+- :mod:`gardner` — the Gardner clock-recovery loop, all modes in one launch
+  (replaces ``kernels/gardner_pallas.py``).
+- :mod:`ddpll` — the decision-directed PLL over packed columns (replaces
+  ``kernels/ddpll_pallas.py``).
 
 A wrapper runs the plain version for a CPU tensor, and the kernel, or
 raises, for a CUDA tensor. The kernels are built with nvcc on first use

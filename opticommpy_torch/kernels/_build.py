@@ -37,6 +37,9 @@ _SIGNATURES = {
     "rls_launch": [_I, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I,
                    _I, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P, _P,
                    _P],
+    "gardner_launch": [_P, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P],
+    "ddpll_launch": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F,
+                     _F, _F, _P, _P],
 }
 
 _lib = None

@@ -220,7 +220,8 @@ def basic_laser_model(config: LaserConfig = None, generator=None, device=None):
     """CW laser with random-walk phase noise, RIN and frequency offset.
 
     Parity with reference devices.py:729 (basicLaserModel). The field lands
-    on the generator's device (``device`` when no generator is given).
+    on the generator's device; an integer seed or ``None`` makes a generator
+    on ``device``, the CUDA device when none is named.
     """
     if config is None:
         config = LaserConfig()

@@ -142,7 +142,8 @@ def simple_wdm_tx(generator_or_seed, config: WDMTxConfig = WDMTxConfig(),
     """Multi-channel WDM pol-mux transmitter (reference tx.py:42).
 
     ``generator_or_seed`` is a ``torch.Generator`` (its device is the Tx's)
-    or an integer seed for a new generator on ``device``. Returns
+    or an integer seed for a new generator on ``device`` (the CUDA device
+    when none is named; without CUDA that raises). Returns
     (sig_wdm (nSamples, nPolModes), symb_wdm (nSymbols, nPolModes,
     nChannels), freq_grid (nChannels,) numpy offsets [Hz]).
     """

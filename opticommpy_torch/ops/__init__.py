@@ -16,11 +16,14 @@ from opticommpy_torch.ops.noise import (
     phase_noise,
 )
 from opticommpy_torch.ops.signal import (
+    clock_sampling_interp,
     decimate,
     delay_signal,
     finddelay,
     iq_mixing,
+    moving_average,
     pnorm,
+    resample,
     sig_pow,
     symbol_sync,
     upsample,
@@ -38,11 +41,14 @@ __all__ = [
     "gaussian_complex_noise",
     "gaussian_noise",
     "phase_noise",
+    "clock_sampling_interp",
     "decimate",
     "delay_signal",
     "finddelay",
     "iq_mixing",
+    "moving_average",
     "pnorm",
+    "resample",
     "sig_pow",
     "symbol_sync",
     "upsample",

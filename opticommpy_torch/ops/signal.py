@@ -8,15 +8,22 @@ and keeps the input's device.
 import cmath
 import math
 
+import numpy as np
 import torch
+
+from opticommpy_torch.ops.filtering import fir_filter, lowpass_fir
+from opticommpy_torch.utils.scan import cumsum
 
 __all__ = [
     "sig_pow",
     "pnorm",
     "upsample",
+    "clock_sampling_interp",
     "decimate",
+    "resample",
     "finddelay",
     "symbol_sync",
+    "moving_average",
     "delay_signal",
     "iq_mixing",
 ]
@@ -61,6 +68,54 @@ def upsample(x, factor):
     return up[:, 0] if squeeze else up
 
 
+def _interp_columns(t_out, t_in, x):
+    """``jnp.interp(t_out, t_in, col)`` for every column of real (N, M) ``x``:
+    linear interpolation with the end values held outside ``t_in``."""
+    n = t_in.shape[0]
+    i = torch.clamp(torch.searchsorted(t_in, t_out, right=True), 1, n - 1)
+    df = x[i] - x[i - 1]
+    dx = (t_in[i] - t_in[i - 1])[:, None]
+    delta = (t_out - t_in[i - 1])[:, None]
+    eps = float(np.spacing(np.finfo(np.float32).eps))
+    dx0 = torch.abs(dx) <= eps
+    f = torch.where(dx0, x[i - 1], x[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where((t_out < t_in[0])[:, None], x[:1], f)
+    return torch.where((t_out > t_in[-1])[:, None], x[-1:], f)
+
+
+def clock_sampling_interp(x, in_fs, out_fs, jitter_rms=0.0, generator=None):
+    """Linear-interpolation resampling to a new clock (core.py:272).
+
+    The time axes are float32, ``arange * Ts`` as the JAX package computes
+    them. Sampling-clock jitter (``jitter_rms`` seconds) is drawn from the
+    explicit ``generator`` and moved to the signal's device; asking for
+    jitter without a generator raises, as the JAX package does without a
+    key.
+    """
+    x = torch.as_tensor(x)
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    n = x.shape[0]
+    in_ts = 1.0 / in_fs
+    out_ts = 1.0 / out_fs
+    n_out = int(np.ceil(n * in_ts / out_ts - 1e-12))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    t_in = torch.arange(n, **f32) * torch.tensor(in_ts, **f32)
+    t_out = torch.arange(n_out, **f32) * torch.tensor(out_ts, **f32)
+    if jitter_rms > 0:
+        if generator is None:
+            raise ValueError("jitter requested but no generator provided")
+        draw = torch.randn(n_out, generator=generator, device=generator.device)
+        t_out = t_out + torch.tensor(jitter_rms, **f32) * draw.to(x.device)
+    if x.is_complex():
+        y = torch.complex(_interp_columns(t_out, t_in, x.real),
+                          _interp_columns(t_out, t_in, x.imag)).to(x.dtype)
+    else:
+        y = _interp_columns(t_out, t_in, x).to(x.dtype)
+    return y[:, 0] if squeeze else y
+
+
 def _roll_columns(x, shifts):
     """Roll column k of (N, M) ``x`` by ``-shifts[k]`` (``jnp.roll(col, -d)``)."""
     n = x.shape[0]
@@ -87,6 +142,20 @@ def decimate(x, sps_in, sps_out=1):
     phase_var = _power(centered).mean(dim=0)  # (sps_in, m)
     delays = torch.argmax(phase_var, dim=0)
     y = _roll_columns(x, delays)[::dec, :]
+    return y[:, 0] if squeeze else y
+
+
+def resample(x, in_fs, out_fs, n_taps=501):
+    """Rational/arbitrary resampling with anti-aliasing FIRs (core.py:494)."""
+    x = torch.as_tensor(x)
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    if out_fs < in_fs:
+        x = fir_filter(lowpass_fir(out_fs / 2, in_fs, min(x.shape[0], n_taps)), x)
+    y = clock_sampling_interp(x, in_fs, out_fs)
+    if out_fs > in_fs:
+        y = fir_filter(lowpass_fir(in_fs / 2, out_fs, min(y.shape[0], n_taps)), y)
     return y[:, 0] if squeeze else y
 
 
@@ -147,6 +216,20 @@ def symbol_sync(rx, tx, sps, mode="amp"):
         - tx.shape[0] + 1 for k in range(n_modes)])
     tx = _roll_columns(tx, delays)
     return tx[:, 0] if squeeze else tx
+
+
+def moving_average(x, window):
+    """Sliding-window moving average with edge zero-padding (core.py:829),
+    as a cumulative-sum difference like the JAX package's."""
+    x = torch.as_tensor(x)
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    pad = window // 2
+    xp = torch.cat([x.new_zeros((pad, x.shape[1])), x, x.new_zeros((pad, x.shape[1]))])
+    c = torch.cat([x.new_zeros((1, x.shape[1])), cumsum(xp, dim=0)])
+    y = ((c[window:] - c[:-window]) / window)[: x.shape[0]].to(x.dtype)
+    return y[:, 0] if squeeze else y
 
 
 def delay_signal(sig, delay, fs=1.0):

@@ -12,8 +12,14 @@ the channels of a WDM field): a front end per signal, then every
 equalizer pass of all B signals in one kernel launch (K3 for the gradient
 rules, K5 for rls / dd-rls) and one BPS launch over all B * modes columns.
 
-Clock recovery (``runCR=True``) and ``coherent_dsp_serve`` are not ported
-yet (ROADMAP.md queue 1, items 11-12).
+With ``runCR=True`` a clock-recovery stage runs between EDC and the
+equalizer: the Gardner loop (``crMethod="gardner"``; on the Hopper kernel K6
+with ``crBackend="pallas"``) or feedforward retiming (``crMethod="ffw"``,
+the only method the batch chain takes, as in the JAX package).
+
+:func:`coherent_dsp_serve` is the converged receiver: frozen taps applied
+by one decimating frequency-domain filter per signal
+(``mimo_apply_fused``), then one BPS launch over all signals' columns.
 """
 
 from dataclasses import dataclass
@@ -23,9 +29,17 @@ import torch
 
 from opticommpy_torch.comm.modulation import gray_mapping
 from opticommpy_torch.dsp.carrier_recovery import bps, fourth_power_foe, unwrap
+from opticommpy_torch.dsp.clock_recovery import (
+    ClockRecoveryConfig,
+    FFWClockRecoveryConfig,
+    ffw_clock_recovery,
+    gardner_clock_recovery,
+)
 from opticommpy_torch.dsp.equalization import (
     EDCConfig,
     MIMOEqualizerConfig,
+    _fused_apply,
+    _fused_response,
     edc,
     mimo_adapt_equalizer,
     mimo_adapt_equalizer_batch,
@@ -33,7 +47,8 @@ from opticommpy_torch.dsp.equalization import (
 from opticommpy_torch.ops.filtering import fir_filter, pulse_shape
 from opticommpy_torch.ops.signal import decimate, pnorm
 
-__all__ = ["CoherentDSPConfig", "coherent_dsp_chain", "coherent_dsp_chain_batch"]
+__all__ = ["CoherentDSPConfig", "coherent_dsp_chain", "coherent_dsp_chain_batch",
+           "coherent_dsp_serve"]
 
 
 @dataclass(frozen=True)
@@ -68,7 +83,8 @@ class CoherentDSPConfig:
     cpr_phases: int = 64
     cprBackend: str = "xla"
     runFOE: bool = True
-    # clock recovery: not ported yet
+    # clock recovery between EDC and the equalizer: 'gardner' (crBackend
+    # 'pallas' = the Hopper kernel, 'scan' = the per-sample loop) or 'ffw'
     runCR: bool = False
     crMethod: str = "gardner"
     crBackend: str = "pallas"
@@ -99,6 +115,20 @@ def _norm_const(M):
     return (const / np.sqrt(np.mean(np.abs(const) ** 2))).astype(np.complex64)
 
 
+def _ffw_config(cfg):
+    return FFWClockRecoveryConfig(blockLen=cfg.crBlockLen, maxPPM=cfg.crMaxPPM,
+                                  rollOff=cfg.rollOff, fit=cfg.crFit, sps=cfg.SpS_dsp)
+
+
+def _clock_recovery(x, cfg):
+    """The chain's retiming stage, with the static output length."""
+    if cfg.crMethod == "ffw":
+        return ffw_clock_recovery(x, _ffw_config(cfg))
+    cr_cfg = ClockRecoveryConfig(kp=cfg.crKp, ki=cfg.crKi, isNyquist=cfg.crNyquist,
+                                 maxPPM=cfg.crMaxPPM)
+    return gardner_clock_recovery(x, cr_cfg, backend=cfg.crBackend, static_out=True)
+
+
 def coherent_dsp_chain(sig, symb_ref, config: CoherentDSPConfig = CoherentDSPConfig()):
     """Full coherent DSP chain on the device of ``sig``.
 
@@ -112,10 +142,6 @@ def coherent_dsp_chain(sig, symb_ref, config: CoherentDSPConfig = CoherentDSPCon
     (y, phases): equalized + carrier-recovered symbols and the CPR phases.
     """
     cfg = config
-    if cfg.runCR:
-        raise NotImplementedError(
-            "coherent_dsp_chain: runCR (clock recovery) is not ported yet "
-            "(ROADMAP.md queue 1, item 12)")
     if cfg.eqBackend not in ("scan", "pallas", "pallas-lms"):
         raise ValueError(f"unknown eqBackend {cfg.eqBackend!r}")
     sig = torch.as_tensor(sig)
@@ -129,6 +155,14 @@ def coherent_dsp_chain(sig, symb_ref, config: CoherentDSPConfig = CoherentDSPCon
     x = pnorm(x)
 
     n_sym = symb_ref.shape[0]
+    if cfg.runCR:
+        x = pnorm(_clock_recovery(x, cfg))
+        n_sym_cr = x.shape[0] // cfg.SpS_dsp
+        if n_sym > n_sym_cr:
+            raise ValueError(
+                f"symb_ref has {n_sym} symbols but clock recovery retains "
+                f"only {n_sym_cr} ((1 - crMaxPPM/1e6) * n_samples / SpS_dsp)"
+                " — trim the reference")
     if cfg.eqBackend == "pallas-lms":
         from opticommpy_torch.kernels.mimo_eq import mimo_eq_kernel
 
@@ -189,10 +223,12 @@ def coherent_dsp_chain_batch(sig_batch, symb_ref_batch,
     from opticommpy_torch.kernels.mimo_eq import mimo_eq_kernel_batch
 
     cfg = config
-    if cfg.runCR:
+    if cfg.runCR and cfg.crMethod != "ffw":
         raise NotImplementedError(
-            "coherent_dsp_chain_batch: runCR (clock recovery) is not ported yet "
-            "(ROADMAP.md queue 1, item 12)")
+            "coherent_dsp_chain_batch supports clock recovery only with "
+            "crMethod='ffw' (the feedforward stage runs per signal; the "
+            "Gardner NCO recurrence has no batched kernel — run "
+            "coherent_dsp_chain per signal for that)")
     sig_batch = torch.as_tensor(sig_batch)
     symb_ref_batch = torch.as_tensor(symb_ref_batch).to(sig_batch.device)
     fs_dsp = cfg.Rs * cfg.SpS_dsp
@@ -204,12 +240,21 @@ def coherent_dsp_chain_batch(sig_batch, symb_ref_batch,
         x = fir_filter(pulse, sig)
         x = decimate(x, cfg.SpS_in, cfg.SpS_dsp)
         x = pnorm(edc(x, edc_cfg))
+        if cfg.runCR:
+            # each signal has its own ADC clock: its own retiming
+            x = pnorm(ffw_clock_recovery(x, _ffw_config(cfg)))
         if cfg.runFOE:
             x, _ = fourth_power_foe(x, fs_dsp, 4)
             x = pnorm(x)
         return x
 
     x = torch.stack([front(s) for s in sig_batch])  # (B, n_dsp, modes)
+    if cfg.runCR and symb_ref_batch.shape[1] > x.shape[1] // cfg.SpS_dsp:
+        raise ValueError(
+            f"symb_ref_batch has {symb_ref_batch.shape[1]} symbols but "
+            f"clock recovery retains only {x.shape[1] // cfg.SpS_dsp} "
+            "((1 - crMaxPPM/1e6) * n_samples / SpS_dsp) — trim the "
+            "reference")
     const = _norm_const(cfg.M)
     ref = torch.stack([pnorm(r) for r in symb_ref_batch])
     if cfg.eqBackend == "pallas":
@@ -228,3 +273,53 @@ def coherent_dsp_chain_batch(sig_batch, symb_ref_batch,
     phases = unwrap(4 * phases, dim=0) / 4
     out = (y_cols * torch.exp(1j * phases)).reshape(n_sym, b, m)
     return out.transpose(0, 1), phases
+
+
+def coherent_dsp_serve(sig_batch, H_batch, config: CoherentDSPConfig = CoherentDSPConfig(),
+                       scale=None):
+    """Converged-receiver serving path for a batch of signals (port of the
+    JAX ``coherent_dsp_serve``).
+
+    After training, the receiver is LTI up to carrier phase: matched filter,
+    CD compensation, power normalization and the frozen MIMO taps collapse
+    into one decimating frequency-domain filter per signal
+    (:func:`~opticommpy_torch.dsp.equalization.mimo_apply_fused`, one
+    combined response for the whole batch), and BPS runs as one kernel
+    launch with the batch folded into the columns.
+
+    Parameters
+    ----------
+    sig_batch : (B, N, modes) received signals at ``SpS_dsp`` samples/symbol
+        (a single (N, modes) signal is also accepted).
+    H_batch : (B, modes, modes, nTaps) converged tap tensors.
+    scale : optional (B,) training-time pnorm scalars (else Parseval).
+
+    Returns
+    -------
+    (out (B, nSym, modes), phases (nSym, B * modes)); for a single signal
+    (out (nSym, modes), phases (nSym, modes)).
+    """
+    from opticommpy_torch.kernels.bps import bps_kernel
+
+    cfg = config
+    sig_batch = torch.as_tensor(sig_batch).to(torch.complex64)
+    H_batch = torch.as_tensor(H_batch).to(sig_batch.device, torch.complex64)
+    squeeze = sig_batch.ndim == 2
+    if squeeze:
+        sig_batch, H_batch = sig_batch[None], H_batch[None]
+    if scale is not None:
+        scale = torch.as_tensor(scale, dtype=torch.float32).to(sig_batch.device)
+        scale = scale.reshape(-1)
+    fs_dsp = cfg.Rs * cfg.SpS_dsp
+    pulse = pulse_shape(cfg.pulseType, cfg.SpS_dsp, cfg.nFilterTaps,
+                        cfg.rollOff).astype(np.float32)
+    edc_cfg = EDCConfig(L=cfg.L, D=cfg.D, Fc=cfg.Fc, Fs=fs_dsp, Rs=cfg.Rs)
+    P, nfft = _fused_response(pulse, edc_cfg, sig_batch.shape[1], H_batch.shape[-1],
+                              cfg.SpS_dsp, sig_batch.device)
+    y = _fused_apply(H_batch, sig_batch, cfg.SpS_dsp, P, nfft, scale)
+    b, n_sym, m = y.shape
+    y_cols = y.transpose(0, 1).reshape(n_sym, b * m)
+    phases = bps_kernel(y_cols, cfg.cpr_window // 2, _norm_const(cfg.M), cfg.cpr_phases)
+    phases = unwrap(4 * phases, dim=0) / 4
+    out = (y_cols * torch.exp(1j * phases)).reshape(n_sym, b, m).transpose(0, 1)
+    return (out[0], phases[:, :m]) if squeeze else (out, phases)

@@ -83,8 +83,8 @@ def test_cpr_matches_jax():
         tcfg = tcr.CPRConfig(alg=alg, M=16, N=35, B=64, Ts=1 / 32e9)
         outs[alg] = to_np(tcr.cpr(torch.as_tensor(sig), tcfg))
         assert np.mean(np.abs(outs[alg] - y_j) < 1e-4) > 1 - MAX_MISMATCH, alg
-    with pytest.raises(NotImplementedError):
-        tcr.cpr(torch.as_tensor(sig), tcr.CPRConfig(alg="ddpll"))
+    with pytest.raises(ValueError, match="incorrectly specified"):
+        tcr.cpr(torch.as_tensor(sig), tcr.CPRConfig(alg="pll"))
 
 
 @pytest.mark.gpu

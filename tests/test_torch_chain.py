@@ -124,7 +124,16 @@ def test_chain_other_backends_match_jax(link, backends):
 
 
 def test_chain_clock_recovery_not_ported(link):
+    """runCR keeps (1 - crMaxPPM/1e6) of the samples, so a reference of
+    every symbol outruns what clock recovery retains: both packages raise
+    ValueError and ask for a trimmed reference (tests/test_torch_clock.py
+    holds the chain with clock recovery to JAX)."""
     sig_rx, d_ref = link
-    cfg = tpipe.CoherentDSPConfig(SpS_in=8, runCR=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.coherent_dsp_chain(torch.as_tensor(sig_rx), torch.as_tensor(d_ref), cfg)
+    for method in ("gardner", "ffw"):
+        cfg = CoherentDSPConfig(SpS_in=8, nFilterTaps=512, L=100, nTrain=N_TRAIN,
+                                runCR=True, crMethod=method, crBackend="scan")
+        with pytest.raises(ValueError, match="trim the reference"):
+            coherent_dsp_chain(sig_rx[: 8 * 4096], d_ref[:4096], cfg)
+        with pytest.raises(ValueError, match="trim the reference"):
+            tpipe.coherent_dsp_chain(torch.as_tensor(sig_rx[: 8 * 4096]),
+                                     torch.as_tensor(d_ref[:4096]), config_from_jax(cfg))

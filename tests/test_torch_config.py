@@ -13,6 +13,10 @@ import torch
 torch.set_num_threads(1)
 
 from opticommpy_tpu.dsp.carrier_recovery import CPRConfig  # noqa: E402
+from opticommpy_tpu.dsp.clock_recovery import (  # noqa: E402
+    ClockRecoveryConfig,
+    FFWClockRecoveryConfig,
+)
 from opticommpy_tpu.dsp.equalization import EDCConfig, MIMOEqualizerConfig  # noqa: E402
 from opticommpy_tpu.models import config as jax_model_config  # noqa: E402
 from opticommpy_tpu.models.tx import WDMTxConfig  # noqa: E402
@@ -31,7 +35,8 @@ PORT_ROOT = pathlib.Path(__file__).resolve().parents[1] / "opticommpy_torch"
 JAX_CONFIGS = sorted(
     [obj for obj in vars(jax_model_config).values()
      if dataclasses.is_dataclass(obj) and isinstance(obj, type)]
-    + [WDMTxConfig, EDCConfig, MIMOEqualizerConfig, CPRConfig, CoherentDSPConfig],
+    + [WDMTxConfig, EDCConfig, MIMOEqualizerConfig, CPRConfig, CoherentDSPConfig,
+       ClockRecoveryConfig, FFWClockRecoveryConfig],
     key=lambda c: c.__name__)
 
 
@@ -67,12 +72,12 @@ def test_taps_and_sd_round_trip():
     rng = np.random.default_rng(0)
     H = (rng.normal(size=(2, 2, 15)) + 1j * rng.normal(size=(2, 2, 15))).astype(np.complex64)
     Sd = (rng.normal(size=(2, 15, 15)) + 1j * rng.normal(size=(2, 15, 15))).astype(np.complex64)
-    Ht = taps_from_numpy(H)
+    Ht = taps_from_numpy(H, device="cpu")
     assert Ht.dtype == torch.complex64 and tuple(Ht.shape) == (2, 2, 15)
     np.testing.assert_array_equal(taps_to_numpy(Ht), H)
-    np.testing.assert_array_equal(sd_to_numpy(sd_from_numpy(Sd)), Sd)
+    np.testing.assert_array_equal(sd_to_numpy(sd_from_numpy(Sd, device="cpu")), Sd)
     with pytest.raises(ValueError):
-        taps_from_numpy(H[0])
+        taps_from_numpy(H[0], device="cpu")
 
 
 def test_package_source_has_no_jax_import():
@@ -88,7 +93,9 @@ def test_package_imports_with_jax_blocked():
             "sys.modules['opticommpy_tpu'] = None; "
             "import opticommpy_torch, opticommpy_torch.pipelines, "
             "opticommpy_torch.convert, opticommpy_torch.kernels.bps, "
-            "opticommpy_torch.kernels.mimo_eq, opticommpy_torch.kernels.rls; print('ok')")
+            "opticommpy_torch.kernels.mimo_eq, opticommpy_torch.kernels.rls, "
+            "opticommpy_torch.kernels.gardner, opticommpy_torch.kernels.ddpll, "
+            "opticommpy_torch.dsp.clock_recovery; print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=PORT_ROOT.parent, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -222,7 +222,7 @@ def test_equalizer_module_carries_sd():
                                   backend="pallas")
     s1, r1 = torch.as_tensor(sig[:800]), torch.as_tensor(sym[:400])
     s2, r2 = torch.as_tensor(sig[800:]), torch.as_tensor(sym[400:])
-    eq = teq.MIMOEqualizer(cfg, n_modes=2)
+    eq = teq.MIMOEqualizer(cfg, n_modes=2, device="cpu")
     assert eq.Sd.shape == (2, 7, 7) and "Sd" in dict(eq.named_buffers())
     torch.testing.assert_close(eq.Sd, torch.eye(7, dtype=torch.complex64).repeat(2, 1, 1))
     eq(s1, r1)
@@ -246,7 +246,8 @@ def test_convert_carries_batched_taps_and_sd():
     const = norm_qam(16)
     _, h_j, sd_j = mimo_rls_pallas_batch(sig_b[:, :600], sym_b[:, :300], const, alg="rls",
                                          n_taps=7, sps=2, lam=0.999, interpret=True)
-    h_t, sd_t = taps_from_numpy(np.asarray(h_j)), sd_from_numpy(np.asarray(sd_j))
+    h_t = taps_from_numpy(np.asarray(h_j), device="cpu")
+    sd_t = sd_from_numpy(np.asarray(sd_j), device="cpu")
     assert h_t.shape == (2, 2, 2, 7) and sd_t.shape == (2, 2, 7, 7)
     np.testing.assert_array_equal(taps_to_numpy(h_t), np.asarray(h_j))
     np.testing.assert_array_equal(sd_to_numpy(sd_t), np.asarray(sd_j))

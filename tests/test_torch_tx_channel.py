@@ -43,7 +43,7 @@ def test_simple_wdm_tx_matches_jax():
 def test_simple_wdm_tx_draws():
     cfg = ttx.WDMTxConfig(M=16, SpS=4, nBits=2**14, nChannels=2, nPolModes=2,
                           nFilterTaps=64, laserLinewidth=100e3)
-    sig, symb, grid = ttx.simple_wdm_tx(5, cfg)
+    sig, symb, grid = ttx.simple_wdm_tx(5, cfg, device="cpu")
     assert sig.shape == (cfg.nSymbols * cfg.SpS, 2)
     assert symb.shape == (cfg.nSymbols, 2, 2)
     # every 16-QAM point is drawn about equally often
@@ -51,8 +51,30 @@ def test_simple_wdm_tx_draws():
     assert len(counts) == 16 and counts.min() > 0.8 * counts.mean()
     # per-channel power: -3 dBm over 2 channels
     assert abs(float(torch.mean(torch.abs(sig) ** 2)) * 2 / (2 * 10**-0.3 * 1e-3) - 1) < 0.05
-    sig2, _, _ = ttx.simple_wdm_tx(5, cfg)
+    sig2, _, _ = ttx.simple_wdm_tx(5, cfg, device="cpu")
     np.testing.assert_array_equal(to_np(sig2), to_np(sig))
+
+
+def test_seed_without_device_runs_on_cuda_or_raises():
+    """An entry point given a seed and no device draws on the card; with no
+    card it raises rather than fall back to the CPU. A tensor input keeps
+    its device."""
+    cfg = ttx.WDMTxConfig(M=16, SpS=4, nBits=2**10, nChannels=1, nPolModes=2,
+                          nFilterTaps=64)
+    lcfg = tdev.LaserConfig(Ns=64, Fs=1e9)
+    if torch.cuda.is_available():
+        assert ttx.simple_wdm_tx(5, cfg)[0].is_cuda
+        assert tdev.basic_laser_model(lcfg, 4).is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttx.simple_wdm_tx(5, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdev.basic_laser_model(lcfg, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdev.basic_laser_model(lcfg)
+    assert tdev.basic_laser_model(lcfg, 4, device="cpu").device.type == "cpu"
+    e = torch.ones(16, dtype=torch.complex64)
+    assert tdev.edfa(e, tdev.EDFAConfig(Fs=1e9)).device.type == "cpu"
 
 
 def _field(n=2**12, seed=0):
