@@ -72,7 +72,31 @@ Phases:
       DD-PLL, ``cpr(alg="ddpll-pallas")`` with a pilot every 32nd symbol (K7
       1). B and C: every polarization printed; BER and GMI medians over the
       22 polarizations against the JAX package's.
-9. the time of every phase; then the kernels JSON line (K1-K7, each with
+9. K8-K10 vs plain: K8, the LDPC check update, at (18, 36, 360, 512); K9 and
+   K10, the fused QC step's check-column update and variable totals, on the
+   state after three plain fused steps of path E's LLRs at DVB-S2 R4/5, R9/10
+   and R1/4; bf16 and f32 messages; every comparison exact.
+10. LDPC decoding, counters reset just before each run and read just after:
+   E. ``decode_ldpc`` on 512 encoded DVB-S2 64800 R4/5 codewords, BPSK over
+      AWGN at Es/N0 2.3 dB, NMSA-20 with float32 messages (bfloat16 would
+      take the megakernel K11, not ported yet), fixed loop (K9 = K10 = 21)
+      and early exit (K9 = K10 = steps); FER 0 required on the fused kernels
+      and on the plain 'xla' route on the card; both routes equal
+      (decisions, iterations, fails; totals < 1e-5 relative); early exit
+      bit-identical to the fixed loop; decode ms and Mbit/s;
+   F. ``make_qc_decoder(backend="pallas")`` on the same LLRs, bf16 NMSA-20:
+      K8 20 launches, bit-identical to the bf16 'xla' route;
+   D. the coded WDM link: 88 encoded R4/5 codewords, 8 per channel plus
+      5,888 tail bits, 16-QAM mode-major on the north-star Tx and channel;
+      path C's receiver, each input rolled by its symbol delay; taps by
+      ``mimo_adapt_equalizer_batch`` (K3 3); ``coherent_coded_serve`` with
+      512 pilot symbols and NMSA-20 float32 early exit (K1 1, K9 = K10 =
+      steps, no plain version); frames
+      failed and post-FEC errors per channel; zero errors on every codeword
+      within symbols [1000, 64536) of its polarization on a channel without a
+      BPS slip; channels 0, 5 and 10 again on the CPU (plain versions): the
+      same fail flags and bits.
+11. the time of every phase; then the kernels JSON line (K1-K10, each with
    its bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s),
    and last the ``{"ok": true, "device": ...}`` line.
 
@@ -828,24 +852,26 @@ def _retained(n_samples_in):
 
 
 def _counts():
-    from opticommpy_torch.kernels import bps, ddpll, gardner, mimo_eq, rls
+    from opticommpy_torch.kernels import bps, ddpll, gardner, ldpc, mimo_eq, qc, rls
 
     return dict(bps=bps.launches, mimo_eq=mimo_eq.launches,
                 mimo_eq_batch=mimo_eq.batch_launches, rls=rls.launches,
                 rls_batch=rls.batch_launches, gardner=gardner.launches,
-                ddpll=ddpll.launches)
+                ddpll=ddpll.launches, ldpc_check=ldpc.launches,
+                qc_check=qc.check_launches, qc_var=qc.var_launches)
 
 
 def _reset_counts():
-    from opticommpy_torch.kernels import bps, ddpll, gardner, mimo_eq, rls
+    from opticommpy_torch.kernels import bps, ddpll, gardner, ldpc, mimo_eq, qc, rls
 
     bps.launches = mimo_eq.launches = mimo_eq.batch_launches = 0
     rls.launches = rls.batch_launches = gardner.launches = ddpll.launches = 0
+    ldpc.launches = qc.check_launches = qc.var_launches = 0
 
 
 def _expect(**nonzero):
     out = dict.fromkeys(("bps", "mimo_eq", "mimo_eq_batch", "rls", "rls_batch", "gardner",
-                         "ddpll"), 0)
+                         "ddpll", "ldpc_check", "qc_check", "qc_var"), 0)
     out.update(nonzero)
     return out
 
@@ -1134,6 +1160,435 @@ def run_serve_path_c(dev, res, n_train=12000, n_channels=11):
                 serve_s=serve_s, train_s=train_s, pll_s=pll_s, failures=failures)
 
 
+def _msize(mdt):
+    return 2 if mdt == "bf16" else 4
+
+
+def _k8_cost(D, n, mdt):
+    """(bytes, flops) of K8 on (D, n): each message read and written once;
+    ~6 operations per message (two mins, the sign, the scale)."""
+    return 2 * D * n * _msize(mdt), 6 * D * n
+
+
+def _k9_cost(tb, B, mdt):
+    """(bytes, flops) of K9: M read and written once, the totals T and Tp
+    read once (in the message type), the vote written; ~12 operations per
+    message (subtract, round, two-min update, parities, leave-one-out)."""
+    D, q, G = tb["S"] + 2, tb["q"], tb["G"]
+    ms = _msize(mdt)
+    return 2 * D * q * 360 * B * ms + (G + q) * 360 * B * ms + 4 * B, 12 * D * q * 360 * B
+
+
+def _k10_cost(tb, B, mdt, n_frozen):
+    """(bytes, flops) of K10: the info messages and the LLRs read once, the
+    old frozen totals read for the ``n_frozen`` frozen codewords only, T and
+    the frozen totals (float32) and at bfloat16 the copy written once, the
+    freeze flags read; one add per message."""
+    S, q, G = tb["S"], tb["q"], tb["G"]
+    ms = _msize(mdt)
+    copy = ms if mdt == "bf16" else 0
+    return (S * q * 360 * B * ms + G * 360 * B * (4 + 4 + 4 + copy) + G * 360 * n_frozen * 4
+            + B), S * q * 360 * B
+
+
+def _path_e_llrs(dev, B=512, seed=5, esn0_db=2.3):
+    """Path E's input, drawn on the card: B encoded DVB-S2 64800 R4/5
+    codewords, BPSK over AWGN at Es/N0 ``esn0_db`` (bench_fec.py:135-171,
+    with encoded codewords). Returns (graph, codewords (64800, B) int8,
+    LLRs (64800, B) float32)."""
+    from opticommpy_torch.comm.fec import encode_ldpc, standard_ldpc
+
+    graph, edges = standard_ldpc("DVBS2", 64800, "4/5")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    info = torch.randint(0, 2, (64800 - 12960, B), generator=gen, device=dev,
+                         dtype=torch.int32)
+    cw = encode_ldpc(info, edges=edges)
+    sigma = float(np.sqrt(0.5 * 10 ** (-esn0_db / 10)))
+    y = (1 - 2 * cw.float()) + sigma * torch.randn(cw.shape, generator=gen, device=dev)
+    return graph, cw, 2 * y / sigma**2
+
+
+def _fused_state(tb, llr, mdt, steps=3):
+    """The fused decoder's state after ``steps`` steps (NMSA) of ``llr`` on
+    the kernels' plain versions: (layout, Tc, Tpc, M, llr_info, fT,
+    freeze)."""
+    from opticommpy_torch.comm import fec_qc
+    from opticommpy_torch.kernels import qc
+
+    lay = qc.QCLayout(tb, llr.device)
+    llr_info, llr_p, c = fec_qc.fused_init(tb, llr, mdt)
+    for kk in range(steps):
+        fec_qc.fused_step(c, llr_info, llr_p, lay, 0.75, kk, 21, plain=True)
+    return lay, c["Tc"], c["Tpc"], c["M"], llr_info, c["fT"], c["done"].clone()
+
+
+def phase_ldpc_kernels(dev, llr):
+    """K8, K9 and K10 against their plain versions on the card, each timed
+    with CUDA events: K8 at (18, 36, 360, 512); K9 and K10 on the state after
+    three plain fused steps of path E's LLRs at R4/5, R9/10 and R1/4; both
+    message types. Every comparison must be exact."""
+    from opticommpy_torch.comm import fec_qc
+    from opticommpy_torch.kernels import ldpc, qc
+
+    report = {}
+    B = llr.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x32 = torch.randn((18, 36, 360, B), generator=gen, device=dev)
+    x32[:, 0, :4] = 0.0  # zeros
+    x32[3:6, 1, 7] = -0.5  # tied minima
+    x32[17, 0, 0] = float("inf")  # the masked staircase entry of check 0
+    worst = 0.0
+    for mdt in ("bf16", "f32"):
+        x = x32.to(torch.bfloat16 if mdt == "bf16" else torch.float32)
+        for alpha in (None, 0.75):
+            out_k = ldpc.check_update_msa(x, alpha)
+            out_p = ldpc.check_update_msa_plain(x, alpha)
+            torch.cuda.synchronize()
+            err = float((out_k.float() - out_p.float()).abs().max())
+            same = bool(torch.equal(out_k, out_p))
+            ms = _cuda_ms(lambda: ldpc.check_update_msa(x, alpha), 20)
+            plain_ms = _cuda_ms(lambda: ldpc.check_update_msa_plain(x, alpha), 3)
+            bound = _bound(*_k8_cost(18, 36 * 360 * B, mdt))
+            print(f"K8 ldpc_check {mdt} alpha {alpha} (18, 36, 360, {B}): max |err| {err:.1e}, "
+                  f"bit-identical {same}, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]})")
+            _check(same and err == 0.0, f"K8 disagrees with plain ({mdt}, alpha {alpha})")
+            worst = max(worst, err)
+            if mdt == "bf16" and alpha == 0.75:
+                report["ldpc_check"] = _with_bound(dict(ms=ms, plain_ms=plain_ms),
+                                                   *_k8_cost(18, 36 * 360 * B, mdt))
+    report["ldpc_check"]["max_abs_err"] = worst
+
+    worst9 = worst10 = 0.0
+    for R in ("4/5", "9/10", "1/4"):
+        tb = fec_qc.qc_tables(R, 64800)
+        for mdt in ("bf16", "f32"):
+            lay, Tc, Tpc, M, llr_info, fT, freeze = _fused_state(tb, llr, mdt)
+            freeze[::3] = True  # the frozen-output select on a third of the codewords
+            bf16 = mdt == "bf16"
+            M_k, ok_k = qc.check_column_update(Tc, Tpc, M, lay, 0.75)
+            M_p, ok_p = qc.check_column_plain(Tc, Tpc, M, lay, 0.75)
+            v_k = qc.var_totals_update(M_k, llr_info, fT, freeze, lay, msg_copy=bf16)
+            v_p = qc.var_totals_plain(M_k, llr_info, fT, freeze, lay, msg_copy=bf16)
+            torch.cuda.synchronize()
+            e9 = max(float((M_k.float() - M_p.float()).abs().max()),
+                     float((ok_k != ok_p).sum()))
+            e10 = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(v_k, v_p) if a is not None)
+            same9 = bool(torch.equal(M_k, M_p)) and bool(torch.equal(ok_k, ok_p))
+            same10 = all(a is None and b is None or bool(torch.equal(a, b))
+                         for a, b in zip(v_k, v_p))
+            ms9 = _cuda_ms(lambda: qc.check_column_update(Tc, Tpc, M, lay, 0.75), 20)
+            plain9 = _cuda_ms(lambda: qc.check_column_plain(Tc, Tpc, M, lay, 0.75), 2)
+            ms10 = _cuda_ms(lambda: qc.var_totals_update(M_k, llr_info, fT, freeze, lay,
+                                                         msg_copy=bf16), 20)
+            plain10 = _cuda_ms(lambda: qc.var_totals_plain(M_k, llr_info, fT, freeze, lay,
+                                                           msg_copy=bf16), 2)
+            n_frozen = int(freeze.sum())
+            b9 = _bound(*_k9_cost(tb, B, mdt))
+            b10 = _bound(*_k10_cost(tb, B, mdt, n_frozen))
+            print(f"K9 qc_check R{R} {mdt} (D={tb['S'] + 2}, q={tb['q']}, B={B}, votes "
+                  f"{int(ok_k.sum())}): max |err| {e9:.1e}, bit-identical {same9}, kernel "
+                  f"{ms9:.4f} ms, plain {plain9:.2f} ms, bound {b9[0]:.4f} ms ({b9[1]})")
+            print(f"K10 qc_var R{R} {mdt} (G={tb['G']}, B={B}, frozen {n_frozen}): "
+                  f"max |err| {e10:.1e}, bit-identical {same10}, kernel {ms10:.4f} ms, plain "
+                  f"{plain10:.2f} ms, bound {b10[0]:.4f} ms ({b10[1]})")
+            _check(same9 and e9 == 0.0, f"K9 disagrees with plain (R{R}, {mdt})")
+            _check(same10 and e10 == 0.0, f"K10 disagrees with plain (R{R}, {mdt})")
+            worst9, worst10 = max(worst9, e9), max(worst10, e10)
+            if R == "4/5" and mdt == "f32":  # the type paths D and E decode with
+                report["qc_check"] = _with_bound(dict(ms=ms9, plain_ms=plain9),
+                                                 *_k9_cost(tb, B, mdt))
+                report["qc_var"] = _with_bound(dict(ms=ms10, plain_ms=plain10),
+                                               *_k10_cost(tb, B, mdt, n_frozen))
+            del lay, Tc, Tpc, M, M_k, M_p, v_k, v_p
+    report["qc_check"]["max_abs_err"] = worst9
+    report["qc_var"]["max_abs_err"] = worst10
+    return report
+
+
+def run_ldpc_path_e(dev, graph, cw, llr):
+    """Path E: decode_ldpc on B=512 encoded R4/5 codewords at 2.3 dB,
+    NMSA-20, float32 messages, fixed loop and early exit, on the fused
+    kernels; the plain 'xla' route on the card beside it. (With bfloat16
+    messages 'auto' would take the megakernel K11, not ported yet.)"""
+    from opticommpy_torch.comm import fec_qc
+    from opticommpy_torch.comm.fec import LDPCConfig, decode_ldpc
+
+    B = llr.shape[1]
+    mdt = "f32"
+    runs = {}
+    for ee in (False, True):
+        cfg = LDPCConfig(maxIter=20, alg="NMSA", msgDtype=mdt, earlyExit=ee)
+        _reset_counts()
+        (dec, tot, fail), first_s = _wall(lambda: decode_ldpc(llr, graph=graph, config=cfg))
+        counts = _counts()
+        _, n_iters, _ = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", mdt, ee)(llr)
+        steps = 21 if not ee else int(n_iters.max()) + 1
+        _check(counts == _expect(qc_check=steps, qc_var=steps),
+               f"path E {mdt} early exit {ee}: launches {counts}, expected K9 = K10 = "
+               f"{steps}")
+        ms = _cuda_ms(lambda: decode_ldpc(llr, graph=graph, config=cfg), 3)
+        n_fail, n_err = int(fail.sum()), int((dec != cw).sum())
+        print(f"path E decode_ldpc {mdt} {'early exit' if ee else 'fixed-20'} (R4/5, B={B}, "
+              f"2.3 dB): launches K9 {counts['qc_check']} K10 {counts['qc_var']}, "
+              f"iterations mean {float(n_iters.float().mean()):.2f} max "
+              f"{int(n_iters.max())}, frames failed {n_fail}, bit errors {n_err}, first "
+              f"{first_s * 1e3:.1f} ms, warm {ms:.2f} ms, {64800 * B / ms / 1e3:.1f} "
+              f"Mbit/s (codeword bits)")
+        _check(n_fail == 0 and n_err == 0, f"path E {mdt}: FER {n_fail}/{B}, {n_err} "
+               "bit errors")
+        runs[ee] = (dec, tot, fail, n_iters, ms, counts)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(runs[False][:4], runs[True][:4]))
+    print(f"path E {mdt}: early exit bit-identical to the fixed loop: {same}")
+    _check(same, f"path E {mdt}: early exit differs from the fixed loop")
+    # the plain roll route ('xla') on the card
+    (tot_x, it_x, fail_x), xla_s = _wall(
+        lambda: fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", mdt,
+                                       backend="xla")(llr))
+    dec_x = (tot_x < 0).to(torch.int8)
+    dec, tot, fail, n_iters = runs[False][:4]
+    rel = float((tot - tot_x).abs().max() / tot_x.abs().max())
+    it_diff = int((n_iters != it_x).sum())
+    dec_diff = int((dec != dec_x).sum())
+    print(f"path E {mdt} fused vs the plain 'xla' route on the card ({xla_s * 1e3:.0f} ms): "
+          f"iteration mismatches {it_diff}, decision mismatches {dec_diff}, fail "
+          f"mismatches {int((fail.bool() != fail_x).sum())}, totals rel err {rel:.3e}; "
+          f"'xla' frames failed {int(fail_x.sum())}, bit errors {int((dec_x != cw).sum())}")
+    _check(int(fail_x.sum()) == 0 and bool(torch.equal(dec_x, cw)),
+           f"path E {mdt}: the plain route does not decode every frame")
+    _check(it_diff == 0 and dec_diff == 0 and rel < 1e-5,
+           f"path E {mdt}: the fused route disagrees with the plain route")
+    return dict(fixed_ms=runs[False][4], early_ms=runs[True][4], counts=runs[False][5])
+
+
+def run_ldpc_path_f(dev, graph, cw, llr):
+    """Path F: make_qc_decoder(backend="pallas") with K8 as the check
+    update, bf16 NMSA-20 on path E's LLRs; the same as the bf16 'xla'
+    route on the card bit for bit."""
+    from opticommpy_torch.comm import fec_qc
+
+    xla_bf16 = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", "bf16", backend="xla")(llr)
+    dec_fn = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", "bf16", backend="pallas")
+    _reset_counts()
+    (tot, n_iters, fail), first_s = _wall(lambda: dec_fn(llr))
+    counts = _counts()
+    _check(counts == _expect(ldpc_check=20), f"path F: launches {counts}, expected K8 20")
+    ms = _cuda_ms(lambda: dec_fn(llr), 2)
+    tot_x, it_x, fail_x = xla_bf16
+    same = (bool(torch.equal(tot, tot_x)) and bool(torch.equal(n_iters, it_x))
+            and bool(torch.equal(fail, fail_x)))
+    dec = (tot < 0).to(torch.int8)
+    print(f"path F (backend='pallas', bf16 NMSA-20, B={llr.shape[1]}): launches K8 "
+          f"{counts['ldpc_check']}, first {first_s * 1e3:.0f} ms, warm {ms:.1f} ms; equal to the "
+          f"'xla' route bit for bit: {same}; bit errors {int((dec != cw).sum())}")
+    _check(same and bool(torch.equal(dec, (tot_x < 0).to(torch.int8))),
+           "path F: the K8 route disagrees with the 'xla' route")
+    return dict(counts=counts, ms=ms)
+
+
+def _sync_delay(ref, tx):
+    """Circular delay d with ref[n] ~ tx[n - d] (one mode), from the peak of
+    their cross-correlation."""
+    c = torch.fft.ifft(torch.fft.fft(ref) * torch.fft.fft(tx).conj())
+    return int(torch.argmax(c.abs()))
+
+
+def _clean_codewords(n_cw=8, n_sym=65536, lo=1000, hi=64536, n=64800):
+    """Per channel, the codewords (index within the channel) that lie
+    wholly within symbols [lo, hi) of one polarization (4 bits/symbol,
+    mode-major), with that polarization."""
+    out = []
+    for c in range(n_cw):
+        s0, s1 = c * n // 4, (c + 1) * n // 4 - 1
+        if s0 // n_sym == s1 // n_sym and s0 % n_sym >= lo and s1 % n_sym < hi:
+            out.append((c, s0 // n_sym))
+    return out
+
+
+def run_coded_path_d(dev, res, n_train=12000, n_channels=11, seed=7):
+    """Path D: the coded WDM link. Encoded DVB-S2 R4/5 codewords on the
+    north-star Tx and channel, path C's receiver, taps trained on the
+    rolled front end, then coherent_coded_serve (K1, K9, K10)."""
+    from unittest import mock
+
+    from opticommpy_torch.comm import fec, fec_qc
+    from opticommpy_torch.comm.fec import LDPCConfig, encode_ldpc, standard_ldpc
+    from opticommpy_torch.comm.modulation import gray_mapping, modulate_gray
+    from opticommpy_torch.dsp import MIMOEqualizerConfig, edc, mimo_adapt_equalizer_batch
+    from opticommpy_torch.kernels import bps, ldpc, qc
+    from opticommpy_torch.models import manakov_ssf
+    from opticommpy_torch.models.tx import WDMTxConfig, wdm_tx_build, wdm_tx_draw
+    from opticommpy_torch.ops import fir_filter, pnorm
+    from opticommpy_torch.pipelines import (CoherentDSPConfig, _norm_const,
+                                            coherent_coded_serve)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_sym, n_cw = 65536, 8 * n_channels
+    _, edges = standard_ldpc("DVBS2", 64800, "4/5")
+    info = torch.randint(0, 2, (51840, n_cw), generator=gen, device=dev, dtype=torch.int32)
+    cw = encode_ldpc(info, edges=edges)  # (64800, 88) int8 on the card
+    tail = torch.randint(0, 2, (n_channels, 8 * n_sym - 8 * 64800), generator=gen, device=dev,
+                         dtype=torch.int8)
+    streams = torch.cat([cw.T.reshape(n_channels, 8 * 64800), tail], dim=1)
+    es = float(np.sqrt(np.mean(np.abs(gray_mapping(16, "qam")) ** 2)))
+    syms = (modulate_gray(streams.reshape(-1), 16, "qam") / es).to(torch.complex64)
+    syms = syms.reshape(n_channels, 2, n_sym)  # mode-major: pol 0's symbols first
+    cfg_tx = WDMTxConfig(M=16, Rs=32e9, SpS=16, nBits=4 * n_sym, nChannels=n_channels,
+                         nPolModes=2, nFilterTaps=1024, pulseRollOff=0.01,
+                         powerPerChannel=(-2.0,), wdmGridSpacing=37.5e9,
+                         laserLinewidth=100e3)
+    _, pn = wdm_tx_draw(gen, cfg_tx)
+    sig_tx, symb_tx, _ = wdm_tx_build(syms, pn, cfg_tx)
+    sig_ch = manakov_ssf(sig_tx, res["cfg_ch"], gen)
+    x_b, _, ref_b, _, pulse2, edc_cfg = serve_inputs(
+        dict(sig_ch=sig_ch, gen=gen, symb_tx=symb_tx), n_channels)
+    # roll each serving input so that the served stream starts at the first
+    # Tx symbol (the SSFM is circular); the front end and the training
+    # reference follow the rolled input
+    ref_tx = torch.stack([pnorm(symb_tx[:, :, k]) for k in range(n_channels)])
+    xs, fronts, scales, delays = [], [], [], []
+    for k in range(n_channels):
+        d = [_sync_delay(ref_b[k, :, p], ref_tx[k, :, p]) for p in range(2)]
+        _check(d[0] == d[1], f"path D ch {k}: the polarizations' delays differ: {d}")
+        x = torch.roll(x_b[k], -2 * d[0], dims=0)
+        pre = edc(fir_filter(pulse2, x), edc_cfg)
+        s = torch.sqrt(torch.mean((pre * pre.conj()).real))
+        xs.append(x)
+        fronts.append(pre / s)
+        scales.append(s)
+        delays.append(d[0])
+    del x_b, ref_b
+    x_b, front_b, scale_b = torch.stack(xs), torch.stack(fronts), torch.stack(scales)
+    del xs, fronts
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"path D: Tx + channel + receive {setup_s:.2f} s; symbol delays {delays}")
+
+    eq_cfg = MIMOEqualizerConfig(nTaps=15, SpS=2, mu=(5e-3, 2e-3), alg=("da-rde", "dd-lms"),
+                                 L=(n_train, n_sym - n_train), M=16, numIter=2,
+                                 backend="pallas")
+    _reset_counts()
+    (y_eq, H_b, _), train_s = _wall(lambda: mimo_adapt_equalizer_batch(
+        front_b, eq_cfg, symb_ref=ref_tx, return_results=True))
+    train_counts = _counts()
+    _check(train_counts == _expect(mimo_eq_batch=3), f"path D training: {train_counts}")
+    # noise variance over the training span; the phase-blind da-rde output
+    # carries the lasers' phase, so each 64-symbol block is first turned by
+    # its own least-squares phase against the reference
+    yt, rt = y_eq[:, :n_train], ref_tx[:, :n_train]
+    raw_var = float(torch.mean(torch.abs(yt - rt) ** 2))
+    nb = n_train // 64
+    yb = yt[:, :nb * 64].reshape(n_channels, nb, 64, 2)
+    rb = rt[:, :nb * 64].reshape(n_channels, nb, 64, 2)
+    ph = torch.angle(torch.sum(yb * rb.conj(), dim=2, keepdim=True))
+    noise_var = float(torch.mean(torch.abs(yb * torch.exp(-1j * ph) - rb) ** 2))
+    print(f"path D training: launches {train_counts}, {train_s:.3f} s; noise_var {noise_var:.5f} "
+          f"(mean |y - ref|^2 over the training span after a per-64-symbol phase; without "
+          f"it {raw_var:.4f})")
+
+    cfg = CoherentDSPConfig(SpS_in=16, L=250, nTrain=n_train, mu=(5e-3, 2e-3))
+    # the default bfloat16 messages would take the megakernel K11, which is
+    # not ported yet; float32 takes K9 and K10 in both packages
+    fec_cfg = LDPCConfig(maxIter=20, alg="NMSA", msgDtype="f32", earlyExit=True)
+    pilots = ref_tx[:, :512]
+    captured = {}
+    real_decode = fec.decode_ldpc
+
+    def decode_spy(llrs, **kw):
+        captured["llrs"] = llrs
+        return real_decode(llrs, **kw)
+
+    plain = [mock.patch.object(qc, "check_column_plain", wraps=qc.check_column_plain),
+             mock.patch.object(qc, "var_totals_plain", wraps=qc.var_totals_plain),
+             mock.patch.object(ldpc, "check_update_msa_plain",
+                               wraps=ldpc.check_update_msa_plain),
+             mock.patch.object(fec_qc, "_check_msa_slots", wraps=fec_qc._check_msa_slots),
+             mock.patch.object(bps, "bps_indices_plain", wraps=bps.bps_indices_plain),
+             mock.patch.object(fec, "decode_ldpc", decode_spy)]
+    spies = [p.start() for p in plain]
+    try:
+        _reset_counts()
+        (bits, fail, out), serve_s = _wall(lambda: coherent_coded_serve(
+            x_b, H_b, cfg, noise_var, fec_config=fec_cfg, pilot_grid=pilots, scale=scale_b))
+        counts = _counts()
+        plain_calls = [s.call_count for s in spies[:-1]]
+    finally:
+        for p in plain:
+            p.stop()
+    _, n_iters, _ = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", "f32", True)(
+        torch.clamp(captured["llrs"], -200.0, 200.0))
+    steps = int(n_iters.max()) + 1
+    print(f"path D serve + decode launches: {counts} ({steps} decoder steps); plain-version "
+          f"calls {plain_calls}; {serve_s:.3f} s for {n_cw} codewords")
+    _check(counts == _expect(bps=1, qc_check=steps, qc_var=steps),
+           f"path D: launches {counts}, expected K1 1, K9 = K10 = {steps}")
+    _check(not any(plain_calls), f"path D reached a plain version: {plain_calls}")
+    _check(tuple(bits.shape) == (64800, n_cw) and tuple(fail.shape) == (n_cw,)
+           and tuple(out.shape) == (n_channels, n_sym, 2) and bool(torch.isfinite(out).all()),
+           f"path D: outputs {tuple(bits.shape)} {tuple(fail.shape)} {tuple(out.shape)}")
+
+    # served symbols against the Tx: symbol errors per 1024-symbol block;
+    # a quarter-turn BPS slip turns every later symbol of its polarization
+    const = torch.as_tensor(_norm_const(16), device=dev)
+
+    def nearest(z):
+        return torch.argmin(torch.abs(z[..., None] - const), dim=-1)
+
+    wrong = (nearest(out) != nearest(ref_tx)).float()[:, 1000:64536]  # (ch, sym, pol)
+    n_blk = wrong.shape[1] // 1024
+    blocks = wrong[:, :n_blk * 1024].reshape(n_channels, n_blk, 1024, 2).mean(dim=2)
+    bad = (blocks > 0.5).cpu().numpy()  # (ch, block, pol)
+    slipped = bad.any(axis=1)  # (ch, pol)
+    # first symbol of the first block past a slip, per (channel, pol)
+    slip_at = [[1000 + 1024 * int(np.argmax(bad[k, :, p])) if slipped[k, p] else None
+                for p in range(2)] for k in range(n_channels)]
+    ser = wrong.mean(dim=1).cpu().numpy()
+    info_err = (bits[:51840].to(torch.int32) != info).sum(dim=0).cpu().numpy()
+    fail_np = fail.cpu().numpy()
+    clean = _clean_codewords()
+    failures = []
+    for k in range(n_channels):
+        cols = slice(8 * k, 8 * k + 8)
+        print(f"  D ch {k:2d}: SER {ser[k, 0]:.2e} {ser[k, 1]:.2e}, slip at {slip_at[k]}; "
+              f"frames failed {int(fail_np[cols].sum())} of 8 {fail_np[cols].tolist()}, "
+              f"post-FEC info bit errors {int(info_err[cols].sum())} "
+              f"{info_err[cols].tolist()}")
+        if not slipped[k].any():
+            for c, _ in clean:
+                if info_err[8 * k + c] or fail_np[8 * k + c]:
+                    failures.append(f"ch {k} codeword {c}: {int(info_err[8 * k + c])} errors, "
+                                    f"fail {int(fail_np[8 * k + c])}")
+    n_clean = sum(1 for k in range(n_channels) if not slipped[k].any()) * len(clean)
+    print(f"path D: frames failed {int(fail_np.sum())} of {n_cw}, post-FEC info bit errors "
+          f"{int(info_err.sum())}; slipped (channel, pol): "
+          f"{[(k, p) for k in range(n_channels) for p in range(2) if slipped[k, p]]}; "
+          f"clean codewords {clean} per channel, {n_clean} checked")
+    _check(not failures, "path D: clean codewords with errors:\n  " + "\n  ".join(failures))
+
+    # the same receiver on the CPU (the kernels' plain versions): channels 0,
+    # 5 and 10
+    sel = [k for k in (0, n_channels // 2, n_channels - 1)]
+    (bits_c, fail_c, _), cpu_s = _wall(lambda: coherent_coded_serve(
+        x_b[sel].cpu(), H_b[sel].cpu(), cfg, noise_var, fec_config=fec_cfg,
+        pilot_grid=pilots[sel].cpu(), scale=scale_b[sel].cpu()))
+    cols = [8 * k + c for k in sel for c in range(8)]
+    bits_g, fail_g = bits[:, cols].cpu(), fail[cols].cpu()
+    both = (fail_g == 0) & (fail_c == 0)
+    diff_failed = int((bits_g[:, ~both] != bits_c[:, ~both]).sum())
+    same_bits = bool(torch.equal(bits_g[:, both], bits_c[:, both]))
+    print(f"path D on the CPU (plain versions), channels {sel}: {cpu_s:.1f} s; fail flags equal "
+          f"{bool(torch.equal(fail_g, fail_c))} ({fail_c.tolist()}); decided bits equal on the "
+          f"{int(both.sum())} decoded frames {same_bits}; differing bits on the others "
+          f"{diff_failed}")
+    _check(bool(torch.equal(fail_g, fail_c)) and same_bits,
+           "path D: the CPU receiver decides otherwise")
+    return dict(train_counts=train_counts, counts=counts, steps=steps, serve_s=serve_s,
+                noise_var=noise_var, frames_failed=int(fail_np.sum()),
+                bit_errors=int(info_err.sum()))
+
+
 
 def main():
     dev = phase_device()
@@ -1234,6 +1689,20 @@ def main():
     t0 = time.perf_counter()
     path_c = run_serve_path_c(dev, res)
     phase_s["path C"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph, cw_e, llr_e = _path_e_llrs(dev)
+    report.update(phase_ldpc_kernels(dev, llr_e))
+    phase_s["K8-K10 vs plain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_e = run_ldpc_path_e(dev, graph, cw_e, llr_e)
+    phase_s["path E"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_f = run_ldpc_path_f(dev, graph, cw_e, llr_e)
+    del graph, cw_e, llr_e
+    phase_s["path F"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_d = run_coded_path_d(dev, res)
+    phase_s["path D"] = time.perf_counter() - t0
     for name, sec in phase_s.items():
         print(f"phase time: {name} {sec:.1f} s")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1263,6 +1732,15 @@ def main():
         dict(name="ddpll", route="cuda", source="opticommpy_torch/csrc/ddpll.cu",
              replaces="opticommpy_tpu/kernels/ddpll_pallas.py:106",
              launches=path_c["pll_counts"]["ddpll"], **report["ddpll"]),
+        dict(name="ldpc_check", route="cuda", source="opticommpy_torch/csrc/ldpc_check.cu",
+             replaces="opticommpy_tpu/kernels/ldpc_pallas.py:83",
+             launches=path_f["counts"]["ldpc_check"], **report["ldpc_check"]),
+        dict(name="qc_check", route="cuda", source="opticommpy_torch/csrc/qc.cu",
+             replaces="opticommpy_tpu/kernels/qc_pallas.py:274",
+             launches=path_d["counts"]["qc_check"], **report["qc_check"]),
+        dict(name="qc_var", route="cuda", source="opticommpy_torch/csrc/qc.cu",
+             replaces="opticommpy_tpu/kernels/qc_pallas.py:411",
+             launches=path_d["counts"]["qc_var"], **report["qc_var"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

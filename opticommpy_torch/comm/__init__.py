@@ -1,7 +1,7 @@
-"""Communication-layer algorithms: modulation, sources, metrics
-(port of ``opticommpy_tpu/comm``)."""
+"""Communication-layer algorithms: modulation, sources, metrics, LDPC codes
+and FEC (port of ``opticommpy_tpu/comm``)."""
 
-from opticommpy_torch.comm import metrics, modulation, sources  # noqa: F401
+from opticommpy_torch.comm import codes, fec, metrics, modulation, sources  # noqa: F401
 from opticommpy_torch.comm.modulation import (  # noqa: F401
     bit_map,
     demap,

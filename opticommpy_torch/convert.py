@@ -26,6 +26,7 @@ __all__ = ["config_from_jax", "port_config_classes", "taps_from_numpy",
 
 def port_config_classes():
     """{class name: port config class} for every config the port copies."""
+    from opticommpy_torch.comm.fec import LDPCConfig
     from opticommpy_torch.dsp.carrier_recovery import CPRConfig
     from opticommpy_torch.dsp.clock_recovery import (ClockRecoveryConfig,
                                                      FFWClockRecoveryConfig)
@@ -37,7 +38,7 @@ def port_config_classes():
     classes = [obj for obj in vars(model_config).values()
                if dataclasses.is_dataclass(obj) and isinstance(obj, type)]
     classes += [WDMTxConfig, EDCConfig, MIMOEqualizerConfig, CPRConfig,
-                CoherentDSPConfig, ClockRecoveryConfig, FFWClockRecoveryConfig]
+                CoherentDSPConfig, ClockRecoveryConfig, FFWClockRecoveryConfig, LDPCConfig]
     return {cls.__name__: cls for cls in classes}
 
 

@@ -10,6 +10,11 @@
   (replaces ``kernels/gardner_pallas.py``).
 - :mod:`ddpll` — the decision-directed PLL over packed columns (replaces
   ``kernels/ddpll_pallas.py``).
+- :mod:`ldpc` — the LDPC check update over the slot axis (replaces
+  ``kernels/ldpc_pallas.py``).
+- :mod:`qc` — one fused step of the quasi-cyclic DVB-S2 decoder: the
+  check-column update and the variable totals (replaces both kernels of
+  ``kernels/qc_pallas.py``).
 
 A wrapper runs the plain version for a CPU tensor, and the kernel, or
 raises, for a CUDA tensor. The kernels are built with nvcc on first use

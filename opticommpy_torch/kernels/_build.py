@@ -40,6 +40,9 @@ _SIGNATURES = {
     "gardner_launch": [_P, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P],
     "ddpll_launch": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F,
                      _F, _F, _P, _P],
+    "ldpc_check_launch": [_I, _I, _P, ctypes.c_longlong, _I, _F, _P, _P],
+    "qc_check_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "qc_var_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None

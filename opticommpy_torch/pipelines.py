@@ -20,6 +20,8 @@ the only method the batch chain takes, as in the JAX package).
 :func:`coherent_dsp_serve` is the converged receiver: frozen taps applied
 by one decimating frequency-domain filter per signal
 (``mimo_apply_fused``), then one BPS launch over all signals' columns.
+:func:`coherent_coded_serve` adds bit LLRs and LDPC decoding to it (the
+fused QC kernels K9 and K10 for DVB-S2 codes on CUDA).
 """
 
 from dataclasses import dataclass
@@ -48,7 +50,7 @@ from opticommpy_torch.ops.filtering import fir_filter, pulse_shape
 from opticommpy_torch.ops.signal import decimate, pnorm
 
 __all__ = ["CoherentDSPConfig", "coherent_dsp_chain", "coherent_dsp_chain_batch",
-           "coherent_dsp_serve"]
+           "coherent_dsp_serve", "coherent_coded_serve"]
 
 
 @dataclass(frozen=True)
@@ -323,3 +325,73 @@ def coherent_dsp_serve(sig_batch, H_batch, config: CoherentDSPConfig = CoherentD
     phases = unwrap(4 * phases, dim=0) / 4
     out = (y_cols * torch.exp(1j * phases)).reshape(n_sym, b, m).transpose(0, 1)
     return (out[0], phases[:, :m]) if squeeze else (out, phases)
+
+
+def coherent_coded_serve(sig_batch, H_batch, config: CoherentDSPConfig = CoherentDSPConfig(),
+                         noise_var=0.05, fec_graph=None, fec_config=None, scale=None,
+                         pilot_grid=None):
+    """Complete coded coherent receiver (port of the JAX
+    ``coherent_coded_serve``): :func:`coherent_dsp_serve` -> bit LLRs
+    (:func:`~opticommpy_torch.comm.metrics.calc_llr`) -> LDPC belief
+    propagation (:func:`~opticommpy_torch.comm.fec.decode_ldpc`; the fused
+    QC kernels for DVB-S2 graphs on CUDA).
+
+    Framing: per signal, the recovered (nSym, modes) symbol grid is read
+    mode-major (all of mode 0's symbols, then mode 1's, ...), each symbol
+    giving log2(M) interleaved bits; the bit-LLR stream is cut into
+    consecutive length-n codewords and the tail beyond the last whole
+    codeword is discarded.
+
+    Parameters
+    ----------
+    sig_batch : (B, N, modes) received signals at ``SpS_dsp`` (or one
+        (N, modes) signal); a NumPy array goes to the default device.
+    H_batch : (B, modes, modes, nTaps) converged equalizer taps.
+    noise_var : per-symbol noise variance of the LLR model (scalar).
+    fec_graph : decoding graph (default: DVB-S2 64800b R4/5).
+    fec_config : :class:`~opticommpy_torch.comm.fec.LDPCConfig` (default:
+        20-iteration bf16 NMSA with early exit; on CUDA that is the JAX
+        package's megakernel, not ported yet, and raises: pass
+        ``msgDtype="f32"`` to decode R4/5 on the fused kernels).
+    pilot_grid : optional (B, P, modes) known leading Tx symbols (any
+        scale). Blind BPS leaves a k*pi/2 ambiguity per column; the
+        correlation of the first P recovered symbols with the pilots sets
+        k per (signal, mode) before demapping.
+
+    Returns
+    -------
+    (decoded_bits (n, n_codewords), frame_fail (n_codewords,),
+     symbols (B, nSym, modes)); codeword c of signal b is column
+    ``b * (n_codewords // B) + c``.
+    """
+    from opticommpy_torch.comm.fec import LDPCConfig, decode_ldpc, standard_ldpc
+    from opticommpy_torch.comm.metrics import calc_llr
+    from opticommpy_torch.comm.modulation import bit_map
+    from opticommpy_torch.utils.rng import default_device
+
+    if fec_graph is None:
+        fec_graph, _ = standard_ldpc("DVBS2", 64800, "4/5")
+    if fec_config is None:
+        fec_config = LDPCConfig(maxIter=20, alg="NMSA", msgDtype="bf16", earlyExit=True)
+    if not isinstance(sig_batch, torch.Tensor):
+        sig_batch = torch.as_tensor(np.asarray(sig_batch), device=default_device())
+    out, _ = coherent_dsp_serve(sig_batch, H_batch, config, scale)
+    out3 = out if out.ndim == 3 else out[None]
+    B, n_sym, modes = out3.shape
+    if pilot_grid is not None:
+        pg = torch.as_tensor(pilot_grid).to(out3.device, torch.complex64)
+        pg = pg if pg.ndim == 3 else pg[None]
+        c = torch.sum(out3[:, :pg.shape[1]] * pg.conj(), dim=1)  # (B, modes)
+        k = torch.round(torch.angle(c) / (np.pi / 2)) % 4
+        out3 = out3 * torch.exp(-1j * (np.pi / 2) * k)[:, None, :]
+    const = _norm_const(config.M)
+    px = np.full(config.M, 1.0 / config.M)
+    ys = out3.transpose(1, 2).reshape(B, modes * n_sym)  # mode-major
+    llr = calc_llr(ys, noise_var, const, bit_map(config.M, "qam"), px).reshape(B, -1)
+    n_code = fec_graph["n"]
+    ncw = llr.shape[1] // n_code
+    if ncw == 0:
+        raise ValueError(f"{llr.shape[1]} bits/signal < one length-{n_code} codeword")
+    llr_cols = llr[:, :ncw * n_code].reshape(B * ncw, n_code).T
+    bits, _, fail = decode_ldpc(llr_cols, graph=fec_graph, config=fec_config)
+    return bits, fail, (out3[0] if out.ndim == 2 else out3)

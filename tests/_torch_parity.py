@@ -53,6 +53,30 @@ def noisy_symbols(seed, n, modes, const, snr_db=22.0, lw_ts=2e-6):
     return (sym * np.exp(1j * phi) + noise).astype(np.complex64)
 
 
+def zero_codeword_llrs(seed, esn0_db, n=64800):
+    """BPSK LLRs (n, len(esn0_db)) float32 of the all-zero codeword, one
+    column per Es/N0 [dB]."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for snr in esn0_db:
+        sigma = np.sqrt(0.5 * 10 ** (-snr / 10))
+        cols.append(2 * (1.0 + sigma * rng.normal(size=n)) / sigma**2)
+    return np.stack(cols, axis=1).astype(np.float32)
+
+
+def assert_qc_decodes_alike(out_t, out_j, rel=1e-5):
+    """QC decoder outputs (totals, n_iters, fail) of the port and of JAX:
+    iteration counts, fail flags and signs equal; totals within ``rel`` of
+    the largest."""
+    o_t, it_t, f_t = (to_np(a) for a in out_t)
+    o_j, it_j, f_j = np.asarray(out_j[0], np.float32), np.asarray(out_j[1]), np.asarray(out_j[2])
+    np.testing.assert_array_equal(it_t, it_j)
+    np.testing.assert_array_equal(f_t, f_j)
+    assert not (np.signbit(o_t) != np.signbit(o_j)).any()
+    err = np.abs(o_t - o_j).max() / np.abs(o_j).max()
+    assert err < rel, err
+
+
 def require_cuda():
     """Skip the calling test when no CUDA device is present."""
     import pytest

@@ -12,6 +12,7 @@ import torch
 
 torch.set_num_threads(1)
 
+from opticommpy_tpu.comm.fec import LDPCConfig  # noqa: E402
 from opticommpy_tpu.dsp.carrier_recovery import CPRConfig  # noqa: E402
 from opticommpy_tpu.dsp.clock_recovery import (  # noqa: E402
     ClockRecoveryConfig,
@@ -36,7 +37,7 @@ JAX_CONFIGS = sorted(
     [obj for obj in vars(jax_model_config).values()
      if dataclasses.is_dataclass(obj) and isinstance(obj, type)]
     + [WDMTxConfig, EDCConfig, MIMOEqualizerConfig, CPRConfig, CoherentDSPConfig,
-       ClockRecoveryConfig, FFWClockRecoveryConfig],
+       ClockRecoveryConfig, FFWClockRecoveryConfig, LDPCConfig],
     key=lambda c: c.__name__)
 
 
@@ -95,7 +96,9 @@ def test_package_imports_with_jax_blocked():
             "opticommpy_torch.convert, opticommpy_torch.kernels.bps, "
             "opticommpy_torch.kernels.mimo_eq, opticommpy_torch.kernels.rls, "
             "opticommpy_torch.kernels.gardner, opticommpy_torch.kernels.ddpll, "
-            "opticommpy_torch.dsp.clock_recovery; print('ok')")
+            "opticommpy_torch.dsp.clock_recovery, opticommpy_torch.comm.fec, "
+            "opticommpy_torch.comm.fec_qc, opticommpy_torch.kernels.ldpc, "
+            "opticommpy_torch.kernels.qc; print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=PORT_ROOT.parent, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
