@@ -72,31 +72,41 @@ Phases:
       DD-PLL, ``cpr(alg="ddpll-pallas")`` with a pilot every 32nd symbol (K7
       1). B and C: every polarization printed; BER and GMI medians over the
       22 polarizations against the JAX package's.
-9. K8-K10 vs plain: K8, the LDPC check update, at (18, 36, 360, 512); K9 and
+9. K8-K12 vs plain: K8, the LDPC check update, at (18, 36, 360, 512); K9 and
    K10, the fused QC step's check-column update and variable totals, on the
    state after three plain fused steps of path E's LLRs at DVB-S2 R4/5, R9/10
-   and R1/4; bf16 and f32 messages; every comparison exact.
+   and R1/4; K11, the whole decode in one launch (NMSA-20, B = 512), flooding
+   at R4/5 (path E's LLRs), R9/10 and R1/4 (all-zero codewords near each
+   code's waterfall) against ``mega_decode_plain`` and the fused route (K9 +
+   K10), layered at R4/5 and R9/10, early exit against the fixed loop; K12,
+   one lifted-circulant iteration, at AR4JA 8192 R1/2 (B = 1024) and 802.11n
+   1944 R1/2 (L = 81); bf16 and f32 messages; every comparison exact.
 10. LDPC decoding, counters reset just before each run and read just after:
    E. ``decode_ldpc`` on 512 encoded DVB-S2 64800 R4/5 codewords, BPSK over
-      AWGN at Es/N0 2.3 dB, NMSA-20 with float32 messages (bfloat16 would
-      take the megakernel K11, not ported yet), fixed loop (K9 = K10 = 21)
-      and early exit (K9 = K10 = steps); FER 0 required on the fused kernels
-      and on the plain 'xla' route on the card; both routes equal
-      (decisions, iterations, fails; totals < 1e-5 relative); early exit
-      bit-identical to the fixed loop; decode ms and Mbit/s;
+      AWGN at Es/N0 2.3 dB, NMSA-20: float32 messages on K9/K10, fixed loop
+      (K9 = K10 = 21) and early exit (K9 = K10 = steps), against the plain
+      'xla' route on the card (decisions, iterations, fails; totals < 1e-5
+      relative); bfloat16, the serving type, on K11 (one launch per decode),
+      fixed loop and early exit, and the layered schedule with early exit,
+      whose mean iterations must be below 0.75 x flooding's; FER 0 on every
+      run; early exit bit-identical to the fixed loop; decode ms and Mbit/s;
    F. ``make_qc_decoder(backend="pallas")`` on the same LLRs, bf16 NMSA-20:
       K8 20 launches, bit-identical to the bf16 'xla' route;
    D. the coded WDM link: 88 encoded R4/5 codewords, 8 per channel plus
       5,888 tail bits, 16-QAM mode-major on the north-star Tx and channel;
       path C's receiver, each input rolled by its symbol delay; taps by
       ``mimo_adapt_equalizer_batch`` (K3 3); ``coherent_coded_serve`` with
-      512 pilot symbols and NMSA-20 float32 early exit (K1 1, K9 = K10 =
-      steps, no plain version); frames
-      failed and post-FEC errors per channel; zero errors on every codeword
-      within symbols [1000, 64536) of its polarization on a channel without a
-      BPS slip; channels 0, 5 and 10 again on the CPU (plain versions): the
-      same fail flags and bits.
-11. the time of every phase; then the kernels JSON line (K1-K10, each with
+      512 pilot symbols and its default FEC config, NMSA-20 bfloat16 early
+      exit (K1 1, K11 1, K9 = K10 = 0, no plain version); frames failed and
+      post-FEC errors per channel, 0 of 88 failed and 0 errors required;
+      channels 0, 5 and 10 again on the CPU (plain versions): the same fail
+      flags and bits;
+   G. ``decode_ldpc`` on AR4JA 8192 R1/2, NMSA-20 bfloat16, B = 1024 (the JAX
+      package's ``run_ar4ja_decode`` workload) on K12 (20 launches):
+      decisions, iterations and fail flags equal to the plain 'xla' lift
+      route on the card; info Mbit/s; then 802.11n 1944 R1/2 at B = 1024 on
+      its plain route on the card.
+11. the time of every phase; then the kernels JSON line (K1-K12, each with
    its bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s),
    and last the ``{"ok": true, "device": ...}`` line.
 
@@ -852,26 +862,31 @@ def _retained(n_samples_in):
 
 
 def _counts():
-    from opticommpy_torch.kernels import bps, ddpll, gardner, ldpc, mimo_eq, qc, rls
+    from opticommpy_torch.kernels import (bps, ddpll, gardner, ldpc, lift, mimo_eq, qc,
+                                          qc_mega, rls)
 
     return dict(bps=bps.launches, mimo_eq=mimo_eq.launches,
                 mimo_eq_batch=mimo_eq.batch_launches, rls=rls.launches,
                 rls_batch=rls.batch_launches, gardner=gardner.launches,
                 ddpll=ddpll.launches, ldpc_check=ldpc.launches,
-                qc_check=qc.check_launches, qc_var=qc.var_launches)
+                qc_check=qc.check_launches, qc_var=qc.var_launches,
+                qc_mega=qc_mega.launches, lift_iter=lift.launches)
 
 
 def _reset_counts():
-    from opticommpy_torch.kernels import bps, ddpll, gardner, ldpc, mimo_eq, qc, rls
+    from opticommpy_torch.kernels import (bps, ddpll, gardner, ldpc, lift, mimo_eq, qc,
+                                          qc_mega, rls)
 
     bps.launches = mimo_eq.launches = mimo_eq.batch_launches = 0
     rls.launches = rls.batch_launches = gardner.launches = ddpll.launches = 0
     ldpc.launches = qc.check_launches = qc.var_launches = 0
+    qc_mega.launches = lift.launches = 0
 
 
 def _expect(**nonzero):
     out = dict.fromkeys(("bps", "mimo_eq", "mimo_eq_batch", "rls", "rls_batch", "gardner",
-                         "ddpll", "ldpc_check", "qc_check", "qc_var"), 0)
+                         "ddpll", "ldpc_check", "qc_check", "qc_var", "qc_mega",
+                         "lift_iter"), 0)
     out.update(nonzero)
     return out
 
@@ -1191,6 +1206,71 @@ def _k10_cost(tb, B, mdt, n_frozen):
             + B), S * q * 360 * B
 
 
+def _k11_steps(n_iters, done, K, early_exit, schedule):
+    """What K11 runs, summed over the codewords: (full steps, steps of the
+    check columns only, how many of those write their messages).
+
+    Flooding: a codeword runs full steps (check columns, then totals) until
+    its vote latches at step n_iters, then stops after that step's check
+    columns (early exit), whose messages are written; otherwise it runs
+    K - 1 full steps and the phantom last step, which only votes. Layered:
+    every sweep is full; a converged codeword stops after sweep n_iters with
+    early exit (n_iters + 1 sweeps), otherwise it runs K."""
+    B = n_iters.numel()
+    if schedule == "layered":
+        if not early_exit:
+            return K * B, 0, 0
+        run = torch.where(done.bool(), n_iters + 1, torch.full_like(n_iters, K))
+        return int(torch.clamp(run, max=K).sum()), 0, 0
+    if not early_exit:
+        return (K - 1) * B, B, 0
+    stop = done.bool() & (n_iters < K - 1)
+    full = torch.where(stop, n_iters, torch.full_like(n_iters, K - 1))
+    return int(full.sum()), B, int(stop.sum())
+
+
+def _k11_cost(tb, mdt, steps, B, schedule="flooding"):
+    """(bytes, flops) of K11 over the codeword-steps ``steps``
+    (:func:`_k11_steps`). A full step reads and writes the messages once
+    (they do not fit on chip: 466 KB per R4/5 codeword in bf16 against
+    227 KB of shared memory), except at step 0, where none are read yet,
+    and reads and writes the totals once (flooding: in the message type,
+    with the LLRs read again; layered: float32 in place). A step of the
+    check columns only reads the totals and the messages, and writes the
+    messages unless it is the phantom step. The LLRs are read and the
+    float32 outputs written once per codeword. ~12 operations per message
+    on the check side (K9's count) and one add per message on the variable
+    side."""
+    full, check_only, writes = steps
+    D, q, G = tb["S"] + 2, tb["q"], tb["G"]
+    ms = _msize(mdt)
+    per_cw = (G + q) * 360
+    msg = D * q * 360 * ms
+    tot = per_cw * (2 * ms + 4) if schedule == "flooding" else per_cw * 8
+    nbytes = (full * (2 * msg + tot) - B * msg + check_only * (msg + per_cw * ms)
+              + writes * msg + B * per_cw * 8 + 8 * B)
+    return nbytes, (13 * full + 12 * check_only) * D * q * 360
+
+
+def _k12_cost(tb, B, mdt):
+    """(bytes, flops) of one K12 iteration: X read and X' written (message
+    type), the LLRs read and T written (float32), the flags written;
+    ~10 operations per message (two-min, sign, scale, the totals' add, the
+    rounding and subtraction of X')."""
+    E, L, V = tb["E"], tb["L"], tb["V"]
+    return 2 * E * L * B * _msize(mdt) + 2 * V * L * B * 4 + 4 * B, 10 * E * L * B
+
+
+def _zero_codeword_llrs(dev, n, B, lo_db, hi_db, seed):
+    """BPSK/AWGN LLRs (n, B) float32 of the all-zero codeword (a codeword of
+    every linear code) on ``dev``, column b at Es/N0 from ``lo_db`` to
+    ``hi_db`` [dB]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    snr = torch.linspace(lo_db, hi_db, B, device=dev)
+    sigma = torch.sqrt(0.5 * 10 ** (-snr / 10))
+    return 2 * (1 + sigma * torch.randn((n, B), generator=gen, device=dev)) / sigma**2
+
+
 def _path_e_llrs(dev, B=512, seed=5, esn0_db=2.3):
     """Path E's input, drawn on the card: B encoded DVB-S2 64800 R4/5
     codewords, BPSK over AWGN at Es/N0 ``esn0_db`` (bench_fec.py:135-171,
@@ -1296,7 +1376,7 @@ def phase_ldpc_kernels(dev, llr):
             _check(same9 and e9 == 0.0, f"K9 disagrees with plain (R{R}, {mdt})")
             _check(same10 and e10 == 0.0, f"K10 disagrees with plain (R{R}, {mdt})")
             worst9, worst10 = max(worst9, e9), max(worst10, e10)
-            if R == "4/5" and mdt == "f32":  # the type paths D and E decode with
+            if R == "4/5" and mdt == "f32":  # the type path E decodes with on K9/K10
                 report["qc_check"] = _with_bound(dict(ms=ms9, plain_ms=plain9),
                                                  *_k9_cost(tb, B, mdt))
                 report["qc_var"] = _with_bound(dict(ms=ms10, plain_ms=plain10),
@@ -1307,59 +1387,191 @@ def phase_ldpc_kernels(dev, llr):
     return report
 
 
+def phase_mega_lift_kernels(dev, llr, lift_B=1024):
+    """K11 and K12 against their plain versions on the card, each timed with
+    CUDA events. K11 (NMSA-20, B = 512) on path E's LLRs at R4/5 and on
+    all-zero codewords near each code's waterfall at R9/10 and R1/4: the
+    flooding schedule at bf16 and f32, against the fused route (K9 + K10)
+    and ``mega_decode_plain``; the layered schedule at R4/5 and R9/10; early
+    exit against the fixed loop. K12 (NMSA) at AR4JA 8192 R1/2, B = 1024,
+    and at 802.11n 1944 R1/2 (L = 81), on the state after two plain
+    iterations. Every comparison must be exact."""
+    from opticommpy_torch.comm import fec_lift, fec_qc
+    from opticommpy_torch.kernels import lift, qc, qc_mega
+
+    report = {}
+    B = llr.shape[1]
+    inputs = {"4/5": llr,
+              "9/10": _zero_codeword_llrs(dev, 64800, B, 4.4, 6.0, 9),
+              "1/4": _zero_codeword_llrs(dev, 64800, B, -2.9, -1.6, 10)}
+    worst = 0.0
+    for R, x in inputs.items():
+        tb = fec_qc.qc_tables(R, 64800)
+        lay = qc.QCLayout(tb, dev)
+        li, lp = fec_qc._split_llrs(tb, x)
+        schedules = ("flooding", "layered") if R != "1/4" else ("flooding",)
+        for mdt in ("bf16", "f32"):
+            fused = fec_qc.make_qc_decoder(64800, R, 20, "NMSA", mdt, backend="fused")(x)
+            for sched in schedules:
+                runs = {}
+                for ee in (False, True):
+                    k = qc_mega.qc_decode_mega(li, lp, lay, 21, 0.75, mdt, ee, sched)
+                    p, plain_s = _wall(lambda: fec_qc.mega_decode_plain(li, lp, lay, 21, 0.75,
+                                                                        mdt, ee, sched))
+                    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(k, p))
+                    same = all(bool(torch.equal(a, b)) for a, b in zip(k, p))
+                    ms = _cuda_ms(lambda: qc_mega.qc_decode_mega(li, lp, lay, 21, 0.75, mdt, ee,
+                                                                 sched), 3)
+                    steps = _k11_steps(k[3], k[2], 21, ee, sched)
+                    bound = _bound(*_k11_cost(tb, mdt, steps, B, sched))
+                    print(f"K11 qc_mega R{R} {mdt} {sched} {'early exit' if ee else 'fixed-20'} "
+                          f"(B={B}): iterations mean {float(k[3].float().mean()):.2f} max "
+                          f"{int(k[3].max())}, done {int(k[2].sum())}, max |err| {err:.1e}, "
+                          f"bit-identical {same}, kernel {ms:.3f} ms, plain {plain_s * 1e3:.0f} "
+                          f"ms, bound {bound[0]:.3f} ms ({bound[1]}; codeword-steps full, "
+                          f"check only, check only writing: {steps})")
+                    _check(same and err == 0.0, f"K11 disagrees with plain (R{R}, {mdt}, {sched}, "
+                           f"early exit {ee})")
+                    worst = max(worst, err)
+                    runs[ee] = k
+                    if R == "4/5" and mdt == "bf16" and sched == "flooding" and ee:
+                        # the configuration paths D and E serve with
+                        report["qc_mega"] = _with_bound(dict(ms=ms, plain_ms=plain_s * 1e3),
+                                                        *_k11_cost(tb, mdt, steps, B, sched))
+                same = all(bool(torch.equal(a, b)) for a, b in zip(runs[False], runs[True]))
+                _check(same, f"K11 R{R} {mdt} {sched}: early exit differs from the fixed loop")
+                if sched == "flooding":
+                    mega = fec_qc._outputs(tb, runs[False][0], runs[False][1], runs[False][3],
+                                           runs[False][2])
+                    same = all(bool(torch.equal(a, b)) for a, b in zip(mega, fused))
+                    print(f"K11 R{R} {mdt} flooding: early exit bit-identical to fixed; equal to "
+                          f"the fused route (K9 + K10) bit for bit: {same}")
+                    _check(same, f"K11 R{R} {mdt}: flooding differs from the fused route")
+            del fused
+        del lay, li, lp
+    report["qc_mega"]["max_abs_err"] = worst
+    del inputs
+
+    worst = 0.0
+    for mode, n, R in (("AR4JA", 8192, "1/2"), ("IEEE_802.11nD2", 1944, "1/2")):
+        B = lift_B
+        tb = fec_lift.lift_tables(mode, n, R)
+        lay = lift.LiftLayout(tb, dev)
+        V, L = tb["V"], tb["L"]
+        order = torch.as_tensor(tb["var_order"], dtype=torch.long, device=dev)
+        llr_bo = _path_g_llrs(dev, V * L, B).reshape(V, L, B)[order]
+        for mdt, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            X = torch.cat([torch.stack([torch.roll(llr_bo[ev[sl, ig]], int(esh[sl, ig]), 0)
+                                        for sl in range(d) for ig in range(ng)])
+                           for (d, ng), ev, esh in zip(tb["chk_buckets"], tb["ev"], tb["esh"])])
+            X = X.to(dt)
+            for _ in range(2):
+                X = lift.lift_iter_plain(X, llr_bo, lay, 0.75)[0]
+            k = lift.lift_iter(X, llr_bo, lay, 0.75)
+            p, plain_s = _wall(lambda: lift.lift_iter_plain(X, llr_bo, lay, 0.75))
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(k, p))
+            same = all(bool(torch.equal(a, b)) for a, b in zip(k, p))
+            ms = _cuda_ms(lambda: lift.lift_iter(X, llr_bo, lay, 0.75), 20)
+            bound = _bound(*_k12_cost(tb, B, mdt))
+            print(f"K12 lift_iter {mode} {n} R{R} {mdt} (L={L}, E={tb['E']}, B={B}, passing "
+                  f"{int(k[2].sum())}): max |err| {err:.1e}, bit-identical {same}, kernel "
+                  f"{ms:.4f} ms, plain {plain_s * 1e3:.1f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]})")
+            _check(same and err == 0.0, f"K12 disagrees with plain ({mode} {n}, {mdt})")
+            worst = max(worst, err)
+            if mode == "AR4JA" and mdt == "bf16":  # path G's configuration
+                report["lift_iter"] = _with_bound(dict(ms=ms, plain_ms=plain_s * 1e3),
+                                                  *_k12_cost(tb, B, mdt))
+    report["lift_iter"]["max_abs_err"] = worst
+    return report
+
+
+def _path_g_llrs(dev, n, B, seed=0):
+    """Path G's input, drawn on the card: 2.0 + 1.2 N(0, 1) LLRs (n, B), the
+    JAX package's ``run_ar4ja_decode`` workload (bench.py:347-365)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return 2.0 + 1.2 * torch.randn((n, B), generator=gen, device=dev)
+
+
 def run_ldpc_path_e(dev, graph, cw, llr):
     """Path E: decode_ldpc on B=512 encoded R4/5 codewords at 2.3 dB,
-    NMSA-20, float32 messages, fixed loop and early exit, on the fused
-    kernels; the plain 'xla' route on the card beside it. (With bfloat16
-    messages 'auto' would take the megakernel K11, not ported yet.)"""
+    NMSA-20, backend 'auto': float32 messages on the fused kernels K9/K10
+    (fixed loop and early exit; the plain 'xla' route on the card beside
+    it), bfloat16, the serving type, on K11 (fixed, early exit, and the
+    layered schedule with early exit)."""
     from opticommpy_torch.comm import fec_qc
     from opticommpy_torch.comm.fec import LDPCConfig, decode_ldpc
 
     B = llr.shape[1]
-    mdt = "f32"
-    runs = {}
-    for ee in (False, True):
-        cfg = LDPCConfig(maxIter=20, alg="NMSA", msgDtype=mdt, earlyExit=ee)
-        _reset_counts()
-        (dec, tot, fail), first_s = _wall(lambda: decode_ldpc(llr, graph=graph, config=cfg))
-        counts = _counts()
-        _, n_iters, _ = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", mdt, ee)(llr)
-        steps = 21 if not ee else int(n_iters.max()) + 1
-        _check(counts == _expect(qc_check=steps, qc_var=steps),
-               f"path E {mdt} early exit {ee}: launches {counts}, expected K9 = K10 = "
-               f"{steps}")
-        ms = _cuda_ms(lambda: decode_ldpc(llr, graph=graph, config=cfg), 3)
-        n_fail, n_err = int(fail.sum()), int((dec != cw).sum())
-        print(f"path E decode_ldpc {mdt} {'early exit' if ee else 'fixed-20'} (R4/5, B={B}, "
-              f"2.3 dB): launches K9 {counts['qc_check']} K10 {counts['qc_var']}, "
-              f"iterations mean {float(n_iters.float().mean()):.2f} max "
-              f"{int(n_iters.max())}, frames failed {n_fail}, bit errors {n_err}, first "
-              f"{first_s * 1e3:.1f} ms, warm {ms:.2f} ms, {64800 * B / ms / 1e3:.1f} "
-              f"Mbit/s (codeword bits)")
-        _check(n_fail == 0 and n_err == 0, f"path E {mdt}: FER {n_fail}/{B}, {n_err} "
-               "bit errors")
-        runs[ee] = (dec, tot, fail, n_iters, ms, counts)
-    same = all(bool(torch.equal(a, b)) for a, b in zip(runs[False][:4], runs[True][:4]))
-    print(f"path E {mdt}: early exit bit-identical to the fixed loop: {same}")
-    _check(same, f"path E {mdt}: early exit differs from the fixed loop")
-    # the plain roll route ('xla') on the card
+    out = {}
+    for mdt in ("f32", "bf16"):
+        runs = {}
+        for ee in (False, True):
+            cfg = LDPCConfig(maxIter=20, alg="NMSA", msgDtype=mdt, earlyExit=ee)
+            _reset_counts()
+            (dec, tot, fail), first_s = _wall(lambda: decode_ldpc(llr, graph=graph, config=cfg))
+            counts = _counts()
+            _, n_iters, _ = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", mdt, ee)(llr)
+            steps = 21 if not ee else int(n_iters.max()) + 1
+            expect = (_expect(qc_check=steps, qc_var=steps) if mdt == "f32" else
+                      _expect(qc_mega=1))
+            _check(counts == expect, f"path E {mdt} early exit {ee}: launches {counts}, expected "
+                   f"{'K9 = K10 = %d' % steps if mdt == 'f32' else 'K11 1'}")
+            ms = _cuda_ms(lambda: decode_ldpc(llr, graph=graph, config=cfg), 3)
+            n_fail, n_err = int(fail.sum()), int((dec != cw).sum())
+            kern = (f"K9 {counts['qc_check']} K10 {counts['qc_var']}" if mdt == "f32" else
+                    f"K11 {counts['qc_mega']}")
+            print(f"path E decode_ldpc {mdt} {'early exit' if ee else 'fixed-20'} (R4/5, B={B}, "
+                  f"2.3 dB): launches {kern}, iterations mean "
+                  f"{float(n_iters.float().mean()):.2f} max {int(n_iters.max())}, frames failed "
+                  f"{n_fail}, bit errors {n_err}, first {first_s * 1e3:.1f} ms, warm {ms:.2f} ms, "
+                  f"{64800 * B / ms / 1e3:.1f} Mbit/s (codeword bits)")
+            _check(n_fail == 0 and n_err == 0, f"path E {mdt}: FER {n_fail}/{B}, {n_err} "
+                   "bit errors")
+            runs[ee] = (dec, tot, fail, n_iters, ms, counts)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(runs[False][:4], runs[True][:4]))
+        print(f"path E {mdt}: early exit bit-identical to the fixed loop: {same}")
+        _check(same, f"path E {mdt}: early exit differs from the fixed loop")
+        out[mdt] = runs
+    # the layered schedule on K11 (bf16, early exit)
+    cfg = LDPCConfig(maxIter=20, alg="NMSA", msgDtype="bf16", earlyExit=True, schedule="layered")
+    _reset_counts()
+    (dec, _, fail), first_s = _wall(lambda: decode_ldpc(llr, graph=graph, config=cfg))
+    counts = _counts()
+    _check(counts == _expect(qc_mega=1), f"path E layered: launches {counts}, expected K11 1")
+    _, it_l, _ = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", "bf16", True,
+                                        schedule="layered")(llr)
+    ms_l = _cuda_ms(lambda: decode_ldpc(llr, graph=graph, config=cfg), 3)
+    n_fail, n_err = int(fail.sum()), int((dec != cw).sum())
+    mean_l = float(it_l.float().mean())
+    mean_f = float(out["bf16"][True][3].float().mean())
+    print(f"path E decode_ldpc bf16 layered early exit (R4/5, B={B}, 2.3 dB): launches K11 "
+          f"{counts['qc_mega']}, iterations mean {mean_l:.2f} max {int(it_l.max())} (flooding "
+          f"{mean_f:.2f}, ratio {mean_l / mean_f:.3f}), frames failed {n_fail}, bit errors "
+          f"{n_err}, first {first_s * 1e3:.1f} ms, warm {ms_l:.2f} ms, "
+          f"{64800 * B / ms_l / 1e3:.1f} Mbit/s (codeword bits)")
+    _check(n_fail == 0 and n_err == 0, f"path E layered: FER {n_fail}/{B}, {n_err} bit errors")
+    _check(mean_l < 0.75 * mean_f, f"path E layered: mean iterations {mean_l:.2f} not below "
+           f"0.75 x flooding's {mean_f:.2f}")
+    # the plain roll route ('xla') on the card, float32
     (tot_x, it_x, fail_x), xla_s = _wall(
-        lambda: fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", mdt,
-                                       backend="xla")(llr))
+        lambda: fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", "f32", backend="xla")(llr))
     dec_x = (tot_x < 0).to(torch.int8)
-    dec, tot, fail, n_iters = runs[False][:4]
+    dec, tot, fail, n_iters = out["f32"][False][:4]
     rel = float((tot - tot_x).abs().max() / tot_x.abs().max())
     it_diff = int((n_iters != it_x).sum())
     dec_diff = int((dec != dec_x).sum())
-    print(f"path E {mdt} fused vs the plain 'xla' route on the card ({xla_s * 1e3:.0f} ms): "
+    print(f"path E f32 fused vs the plain 'xla' route on the card ({xla_s * 1e3:.0f} ms): "
           f"iteration mismatches {it_diff}, decision mismatches {dec_diff}, fail "
           f"mismatches {int((fail.bool() != fail_x).sum())}, totals rel err {rel:.3e}; "
           f"'xla' frames failed {int(fail_x.sum())}, bit errors {int((dec_x != cw).sum())}")
     _check(int(fail_x.sum()) == 0 and bool(torch.equal(dec_x, cw)),
-           f"path E {mdt}: the plain route does not decode every frame")
+           "path E f32: the plain route does not decode every frame")
     _check(it_diff == 0 and dec_diff == 0 and rel < 1e-5,
-           f"path E {mdt}: the fused route disagrees with the plain route")
-    return dict(fixed_ms=runs[False][4], early_ms=runs[True][4], counts=runs[False][5])
+           "path E f32: the fused route disagrees with the plain route")
+    return dict(fixed_ms=out["f32"][False][4], early_ms=out["f32"][True][4],
+                counts=out["f32"][False][5], bf16_fixed_ms=out["bf16"][False][4],
+                bf16_early_ms=out["bf16"][True][4], layered_ms=ms_l)
 
 
 def run_ldpc_path_f(dev, graph, cw, llr):
@@ -1387,6 +1599,56 @@ def run_ldpc_path_f(dev, graph, cw, llr):
     return dict(counts=counts, ms=ms)
 
 
+def run_lift_path_g(dev, B=1024):
+    """Path G: AR4JA 8192 R1/2 (n = 10,240 with the punctured tail), NMSA-20
+    bf16, B = 1024, through decode_ldpc on 'auto', which is K12 (the JAX
+    package's ``ar4ja_decode_info_Mbit_per_s_b1024`` workload,
+    bench.py:347-365); decisions, iterations and fail flags against the
+    plain 'xla' lift route on the card. Then 802.11n 1944 R1/2 at B = 1024
+    on 'auto', which is the plain route there (L = 81)."""
+    from opticommpy_torch.comm import fec_lift
+    from opticommpy_torch.comm.fec import LDPCConfig, decode_ldpc, standard_ldpc
+
+    graph, _ = standard_ldpc("AR4JA", 8192, "1/2")
+    llr = _path_g_llrs(dev, graph["n"], B)
+    cfg = LDPCConfig(maxIter=20, alg="NMSA", msgDtype="bf16")
+    _reset_counts()
+    (dec, tot, fail), first_s = _wall(lambda: decode_ldpc(llr, graph=graph, config=cfg))
+    counts = _counts()
+    _check(counts == _expect(lift_iter=20), f"path G: launches {counts}, expected K12 20")
+    ms = _cuda_ms(lambda: decode_ldpc(llr, graph=graph, config=cfg), 3)
+    k12 = fec_lift.make_lift_decoder("AR4JA", 8192, "1/2", 20, "NMSA", "bf16")(llr)
+    (tot_x, it_x, fail_x), xla_s = _wall(lambda: fec_lift.make_lift_decoder(
+        "AR4JA", 8192, "1/2", 20, "NMSA", "bf16", backend="xla")(llr))
+    same_dec = bool(torch.equal(dec, (tot_x < 0).to(torch.int8)))
+    same_it = bool(torch.equal(k12[1], it_x))
+    same_fail = bool(torch.equal(fail, fail_x.to(torch.int8)))
+    same_tot = bool(torch.equal(tot, tot_x))
+    info_mbps = 8192 * 0.5 * B / ms / 1e3
+    print(f"path G decode_ldpc AR4JA 8192 R1/2 bf16 NMSA-20 (B={B}): launches K12 "
+          f"{counts['lift_iter']}, iterations mean {float(k12[1].float().mean()):.2f} max "
+          f"{int(k12[1].max())}, frames failed {int(fail.sum())}, ones decided "
+          f"{int(dec.sum())}, first {first_s * 1e3:.1f} ms, warm {ms:.2f} ms, {info_mbps:.1f} "
+          f"Mbit/s (info bits); the plain 'xla' route on the card ({xla_s * 1e3:.0f} ms): "
+          f"decisions equal {same_dec}, iterations equal {same_it}, fail flags equal "
+          f"{same_fail}, totals bit-identical {same_tot}")
+    _check(same_dec and same_it and same_fail, "path G: K12 disagrees with the 'xla' route")
+    _check(bool(torch.isfinite(tot).all()) and tuple(tot.shape) == (graph["n"], B),
+           f"path G: output {tuple(tot.shape)}")
+    g80211, _ = standard_ldpc("IEEE_802.11nD2", 1944, "1/2")
+    llr80211 = _zero_codeword_llrs(dev, 1944, B, -1.5, 0.0, 11)
+    _reset_counts()
+    (dec2, tot2, fail2), s2 = _wall(lambda: decode_ldpc(llr80211, graph=g80211, config=cfg))
+    counts2 = _counts()
+    print(f"path G 802.11n 1944 R1/2 bf16 NMSA-20 (B={B}, all-zero codewords at -1.5 to 0 dB) "
+          f"on 'auto' (the plain route): launches {counts2}, frames failed "
+          f"{int(fail2.sum())}, {s2 * 1e3:.0f} ms")
+    _check(counts2 == _expect() and tot2.is_cuda and bool(torch.isfinite(tot2).all())
+           and int(fail2.sum()) < B // 2, f"path G 802.11n: launches {counts2}, "
+           f"{int(fail2.sum())} of {B} frames failed")
+    return dict(counts=counts, ms=ms, info_mbps=info_mbps)
+
+
 def _sync_delay(ref, tx):
     """Circular delay d with ref[n] ~ tx[n - d] (one mode), from the peak of
     their cross-correlation."""
@@ -1409,14 +1671,15 @@ def _clean_codewords(n_cw=8, n_sym=65536, lo=1000, hi=64536, n=64800):
 def run_coded_path_d(dev, res, n_train=12000, n_channels=11, seed=7):
     """Path D: the coded WDM link. Encoded DVB-S2 R4/5 codewords on the
     north-star Tx and channel, path C's receiver, taps trained on the
-    rolled front end, then coherent_coded_serve (K1, K9, K10)."""
+    rolled front end, then coherent_coded_serve at its default FEC config
+    (K1, K11)."""
     from unittest import mock
 
     from opticommpy_torch.comm import fec, fec_qc
-    from opticommpy_torch.comm.fec import LDPCConfig, encode_ldpc, standard_ldpc
+    from opticommpy_torch.comm.fec import encode_ldpc, standard_ldpc
     from opticommpy_torch.comm.modulation import gray_mapping, modulate_gray
     from opticommpy_torch.dsp import MIMOEqualizerConfig, edc, mimo_adapt_equalizer_batch
-    from opticommpy_torch.kernels import bps, ldpc, qc
+    from opticommpy_torch.kernels import bps, ldpc, qc, qc_mega
     from opticommpy_torch.models import manakov_ssf
     from opticommpy_torch.models.tx import WDMTxConfig, wdm_tx_build, wdm_tx_draw
     from opticommpy_torch.ops import fir_filter, pnorm
@@ -1489,9 +1752,7 @@ def run_coded_path_d(dev, res, n_train=12000, n_channels=11, seed=7):
           f"it {raw_var:.4f})")
 
     cfg = CoherentDSPConfig(SpS_in=16, L=250, nTrain=n_train, mu=(5e-3, 2e-3))
-    # the default bfloat16 messages would take the megakernel K11, which is
-    # not ported yet; float32 takes K9 and K10 in both packages
-    fec_cfg = LDPCConfig(maxIter=20, alg="NMSA", msgDtype="f32", earlyExit=True)
+    fec_cfg = None  # coherent_coded_serve's default: NMSA-20, bf16, early exit (K11)
     pilots = ref_tx[:, :512]
     captured = {}
     real_decode = fec.decode_ldpc
@@ -1502,6 +1763,7 @@ def run_coded_path_d(dev, res, n_train=12000, n_channels=11, seed=7):
 
     plain = [mock.patch.object(qc, "check_column_plain", wraps=qc.check_column_plain),
              mock.patch.object(qc, "var_totals_plain", wraps=qc.var_totals_plain),
+             mock.patch.object(qc_mega, "mega_decode_plain", wraps=qc_mega.mega_decode_plain),
              mock.patch.object(ldpc, "check_update_msa_plain",
                                wraps=ldpc.check_update_msa_plain),
              mock.patch.object(fec_qc, "_check_msa_slots", wraps=fec_qc._check_msa_slots),
@@ -1517,13 +1779,13 @@ def run_coded_path_d(dev, res, n_train=12000, n_channels=11, seed=7):
     finally:
         for p in plain:
             p.stop()
-    _, n_iters, _ = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", "f32", True)(
+    _, n_iters, _ = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", "bf16", True)(
         torch.clamp(captured["llrs"], -200.0, 200.0))
-    steps = int(n_iters.max()) + 1
-    print(f"path D serve + decode launches: {counts} ({steps} decoder steps); plain-version "
+    print(f"path D serve + decode launches: {counts} (iterations mean "
+          f"{float(n_iters.float().mean()):.2f} max {int(n_iters.max())}); plain-version "
           f"calls {plain_calls}; {serve_s:.3f} s for {n_cw} codewords")
-    _check(counts == _expect(bps=1, qc_check=steps, qc_var=steps),
-           f"path D: launches {counts}, expected K1 1, K9 = K10 = {steps}")
+    _check(counts == _expect(bps=1, qc_mega=1),
+           f"path D: launches {counts}, expected K1 1, K11 1 and no K9/K10")
     _check(not any(plain_calls), f"path D reached a plain version: {plain_calls}")
     _check(tuple(bits.shape) == (64800, n_cw) and tuple(fail.shape) == (n_cw,)
            and tuple(out.shape) == (n_channels, n_sym, 2) and bool(torch.isfinite(out).all()),
@@ -1584,7 +1846,10 @@ def run_coded_path_d(dev, res, n_train=12000, n_channels=11, seed=7):
           f"{diff_failed}")
     _check(bool(torch.equal(fail_g, fail_c)) and same_bits,
            "path D: the CPU receiver decides otherwise")
-    return dict(train_counts=train_counts, counts=counts, steps=steps, serve_s=serve_s,
+    _check(not fail_np.any() and not info_err.any(),
+           f"path D: {int(fail_np.sum())} of {n_cw} frames failed, {int(info_err.sum())} "
+           "post-FEC errors")
+    return dict(train_counts=train_counts, counts=counts, serve_s=serve_s,
                 noise_var=noise_var, frames_failed=int(fail_np.sum()),
                 bit_errors=int(info_err.sum()))
 
@@ -1694,6 +1959,9 @@ def main():
     report.update(phase_ldpc_kernels(dev, llr_e))
     phase_s["K8-K10 vs plain"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    report.update(phase_mega_lift_kernels(dev, llr_e))
+    phase_s["K11, K12 vs plain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     path_e = run_ldpc_path_e(dev, graph, cw_e, llr_e)
     phase_s["path E"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1703,6 +1971,9 @@ def main():
     t0 = time.perf_counter()
     path_d = run_coded_path_d(dev, res)
     phase_s["path D"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_g = run_lift_path_g(dev)
+    phase_s["path G"] = time.perf_counter() - t0
     for name, sec in phase_s.items():
         print(f"phase time: {name} {sec:.1f} s")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1737,10 +2008,16 @@ def main():
              launches=path_f["counts"]["ldpc_check"], **report["ldpc_check"]),
         dict(name="qc_check", route="cuda", source="opticommpy_torch/csrc/qc.cu",
              replaces="opticommpy_tpu/kernels/qc_pallas.py:274",
-             launches=path_d["counts"]["qc_check"], **report["qc_check"]),
+             launches=path_e["counts"]["qc_check"], **report["qc_check"]),
         dict(name="qc_var", route="cuda", source="opticommpy_torch/csrc/qc.cu",
              replaces="opticommpy_tpu/kernels/qc_pallas.py:411",
-             launches=path_d["counts"]["qc_var"], **report["qc_var"]),
+             launches=path_e["counts"]["qc_var"], **report["qc_var"]),
+        dict(name="qc_mega", route="cuda", source="opticommpy_torch/csrc/qc_mega.cu",
+             replaces="opticommpy_tpu/kernels/qc_mega.py:443",
+             launches=path_d["counts"]["qc_mega"], **report["qc_mega"]),
+        dict(name="lift_iter", route="cuda", source="opticommpy_torch/csrc/lift.cu",
+             replaces="opticommpy_tpu/kernels/lift_pallas.py:182",
+             launches=path_g["counts"]["lift_iter"], **report["lift_iter"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,12 +12,13 @@
   message array carries a trailing B axis, and each column keeps its own
   convergence flag, iteration count and frozen totals. DVB-S2 graphs go to
   the quasi-cyclic decoder of :mod:`.fec_qc` (the Hopper kernels on CUDA);
+  802.11n / AR4JA graphs to the lifted-circulant decoder of :mod:`.fec_lift`;
   other graphs to the degree-bucketed decoder, or to the uniformly padded
   one when the graph has no buckets.
+- Hamming codes, ALIST I/O and the Gallager ensemble are host-side NumPy
+  helpers around the same encoder and decoder.
 
-Not ported yet (``ROADMAP.md`` queue 1, item 13): the Hamming helpers, ALIST
-I/O, ``gallager_ldpc``, ``plot_binary_matrix`` and the lifted-circulant
-decoder of 802.11n / AR4JA graphs from :func:`standard_ldpc`.
+Not ported yet (``ROADMAP.md`` queue 1, item 13): ``plot_binary_matrix``.
 """
 
 import warnings
@@ -40,6 +41,15 @@ __all__ = [
     "standard_ldpc",
     "encode_ldpc",
     "decode_ldpc",
+    "read_alist",
+    "read_alist_edges",
+    "write_alist",
+    "parse_alist",
+    "summarize_alist_folder",
+    "hamming_parity_check_matrix",
+    "encode_hamming",
+    "decode_hamming",
+    "gallager_ldpc",
 ]
 
 
@@ -176,6 +186,132 @@ def _dense(H):
     return np.asarray(H, dtype=np.uint8)
 
 
+# ---------------------------------------------------------------------------
+# ALIST I/O and code constructions (host-side NumPy)
+# ---------------------------------------------------------------------------
+
+
+def read_alist_edges(filename):
+    """Read an ALIST file into its sparse support: ``(n, m, rows, cols)``,
+    the int32 nonzero coordinates of the (m, n) parity-check matrix (the
+    JAX package's Python parse; its native loader returns the same)."""
+    with open(filename) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    n, m = map(int, lines[0].split())
+    rows, cols = [], []
+    for j, line in enumerate(lines[4:4 + n]):
+        for entry in map(int, line.split()):
+            if entry > 0:
+                rows.append(entry - 1)
+                cols.append(j)
+    return n, m, np.asarray(rows, np.int32), np.asarray(cols, np.int32)
+
+
+def read_alist(filename):
+    """Read an ALIST file into a dense (m, n) uint8 parity-check matrix."""
+    n, m, rows, cols = read_alist_edges(filename)
+    H = np.zeros((m, n), dtype=np.uint8)
+    H[rows, cols] = 1
+    return H
+
+
+def write_alist(H, filename):
+    """Save a binary parity-check matrix to ALIST format."""
+    H = _dense(H)
+    m, n = H.shape
+    var_deg = H.sum(axis=0)
+    chk_deg = H.sum(axis=1)
+    max_col = int(var_deg.max())
+    max_row = int(chk_deg.max())
+    with open(filename, "w") as f:
+        f.write(f"{n} {m}\n{max_col} {max_row}\n")
+        f.write(" ".join(map(str, var_deg)) + "\n")
+        f.write(" ".join(map(str, chk_deg)) + "\n")
+        for j in range(n):
+            conn = list(np.nonzero(H[:, j])[0] + 1) + [0] * (max_col - var_deg[j])
+            f.write(" ".join(map(str, conn)) + "\n")
+        for i in range(m):
+            conn = list(np.nonzero(H[i])[0] + 1) + [0] * (max_row - chk_deg[i])
+            f.write(" ".join(map(str, conn)) + "\n")
+
+
+def parse_alist(path):
+    """Basic parameters of an ALIST file: n, m, rate, largest column and
+    row weights."""
+    n, m, rows, cols = read_alist_edges(path)
+    col_w = np.bincount(cols, minlength=n)
+    row_w = np.bincount(rows, minlength=m)
+    return {
+        "n": n,
+        "m": m,
+        "rate": (n - m) / n if n else 0,
+        "max_col_w": int(col_w.max()) if col_w.size else 0,
+        "max_row_w": int(row_w.max()) if row_w.size else 0,
+    }
+
+
+def summarize_alist_folder(folder_path):
+    """Summarize every ``.alist`` / ``.txt`` file of a folder as a text
+    table (:func:`parse_alist` on each; a file that fails to parse is
+    reported and skipped); prints and returns the table."""
+    import os
+
+    header = ("File", "n (length)", "m (checks)", "Rate", "Max Var Deg", "Max Check Deg")
+    rows = []
+    for filename in sorted(os.listdir(folder_path)):
+        if not (filename.endswith(".alist") or filename.endswith(".txt")):
+            continue
+        try:
+            info = parse_alist(os.path.join(folder_path, filename))
+        except Exception as exc:  # noqa: BLE001 - the JAX package's tolerance
+            print(f"Failed to parse {filename}: {exc}")
+            continue
+        rows.append((filename, str(info["n"]), str(info["m"]), f"{info['rate']:.3f}",
+                     str(info["max_col_w"]), str(info["max_row_w"])))
+    widths = [max(len(h), *(len(r[i]) for r in rows)) if rows else len(h)
+              for i, h in enumerate(header)]
+    fmt = " | ".join(f"{{:<{w}}}" for w in widths)
+    lines = [fmt.format(*header), "-+-".join("-" * w for w in widths)]
+    lines += [fmt.format(*r) for r in rows]
+    table = "\n".join(lines)
+    print(table)
+    return table
+
+
+def hamming_parity_check_matrix(m, extended=False):
+    """Hamming (or extended Hamming) parity-check matrix: column j of the
+    standard code is the binary representation of j + 1, LSB at the top."""
+    if m < 1:
+        raise ValueError("m must be a positive integer.")
+    n_std = 2**m - 1
+    cols = np.arange(1, n_std + 1)
+    H_std = ((cols[None, :] >> np.arange(m)[:, None]) & 1).astype(np.uint8)
+    if not extended:
+        return H_std
+    H_ext = np.zeros((m + 1, n_std + 1), dtype=np.uint8)
+    H_ext[:m, :n_std] = H_std
+    H_ext[m, :] = 1
+    return H_ext
+
+
+def gallager_ldpc(n, dv, dc, seed=0):
+    """Random regular (dv, dc) LDPC parity-check matrix (Gallager ensemble,
+    NumPy generator from ``seed``: the JAX package's matrix)."""
+    if (n * dv) % dc != 0:
+        raise ValueError("n*dv must be divisible by dc")
+    m = n * dv // dc
+    rng = np.random.default_rng(seed)
+    rows_per_block = m // dv
+    if rows_per_block * dc != n:
+        raise ValueError("inconsistent (n, dv, dc)")
+    H = np.zeros((m, n), dtype=np.uint8)
+    for b in range(dv):
+        perm = rng.permutation(n)
+        for r in range(rows_per_block):
+            H[b * rows_per_block + r, perm[r * dc:(r + 1) * dc]] = 1
+    return H
+
+
 def _on_device(x, dtype):
     """A tensor keeps its device; anything else goes to the default device
     (CUDA, or raise: see :func:`opticommpy_torch.utils.rng.default_device`)."""
@@ -198,8 +334,8 @@ class LDPCConfig:
     ``alg``: 'SPA' | 'MSA' | 'NMSA' (min-sum with check messages scaled by
     0.75). ``msgDtype``: message storage, 'f32' or 'bf16' (totals always
     accumulate in float32). ``earlyExit``: stop once every codeword of the
-    batch converged (QC decoder; identical outputs). ``schedule``:
-    'flooding', or 'layered' (the megakernel's, not ported yet).
+    batch converged (QC and lift decoders; identical outputs). ``schedule``:
+    'flooding', or 'layered' (DVB-S2 on the whole-decode kernel K11 only).
     """
 
     mode: str = "DVBS2"
@@ -289,6 +425,17 @@ def encode_ldpc(bits, H=None, config: LDPCConfig = LDPCConfig(), G=None,
     else:
         raise ValueError(f"Unsupported mode: {config.mode}")
     return torch.cat([p.to(torch.int8) for p in parts], dim=0)
+
+
+def encode_hamming(bits, m=3, extended=False):
+    """Hamming encoding of (k, N) bit columns: (codewords (n, N) int8, Hm),
+    with Hm the column-permuted H of the systematic generator."""
+    H = hamming_parity_check_matrix(m, extended)
+    G, _, Hm = par2gen(H)
+    if bits.shape[0] != G.shape[0]:
+        raise ValueError(f"Input bits have {bits.shape[0]} rows, expected {G.shape[0]}.")
+    cw = encode_ldpc(bits, H=Hm, config=LDPCConfig(mode="G"), G=G)
+    return cw, Hm
 
 
 # ---------------------------------------------------------------------------
@@ -577,12 +724,22 @@ def decode_ldpc(llrs, H=None, config: LDPCConfig = LDPCConfig(), graph=None):
     device (a NumPy array goes to the default device).
 
     Returns (decodedBits (n, N) int8, outputLLRs (n, N), frameErrors (N,)
-    int8). Punctured inputs (fewer rows than n) are zero-padded. DVB-S2
-    graphs (``graph["qc"]``) decode on :func:`.fec_qc.make_qc_decoder`
-    with ``backend="auto"``: the fused Hopper kernels for MSA/NMSA on CUDA
-    where the JAX package takes its fused route too (it raises
-    ``NotImplementedError`` where the JAX package would take its megakernel:
-    :func:`.fec_qc.takes_megakernel`), the plain roll route on the CPU.
+    int8). Punctured inputs (fewer rows than n) are zero-padded. Routing, as
+    in the JAX package:
+
+    - DVB-S2 graphs (``graph["qc"]``) decode on
+      :func:`.fec_qc.make_qc_decoder` with ``backend="auto"`` and
+      ``config.schedule``: MSA/NMSA on CUDA on the whole-decode kernel K11
+      where :func:`.fec_qc.takes_megakernel` holds (bfloat16 messages at
+      every rate, float32 at rates 1/4 to 2/3), elsewhere on the fused
+      kernels K9 + K10; SPA and CPU tensors on the plain roll route
+      (``schedule="layered"`` needs K11 and raises on the CPU);
+    - 802.11n and AR4JA graphs (``graph["lift"]``) on
+      :func:`.fec_lift.make_lift_decoder` with ``backend="auto"``: the
+      iteration kernel K12 on CUDA for MSA/NMSA where the lift is 512 or
+      more rows (AR4JA 8192 R1/2), elsewhere the plain roll route;
+    - other graphs on the degree-bucketed decoder, or on the uniformly
+      padded one when the graph has no buckets.
     """
     if graph is None:
         graph = ldpc_graph(H)
@@ -611,11 +768,12 @@ def decode_ldpc(llrs, H=None, config: LDPCConfig = LDPCConfig(), graph=None):
             bool(config.earlyExit), schedule=config.schedule)
         out_llr, n_iters, fail = dec(llrs)
     elif lift is not None:
-        raise NotImplementedError(
-            "the lifted-circulant decoder of 802.11n / AR4JA graphs "
-            "(fec_lift.make_lift_decoder and its kernel) is not ported yet: "
-            "ROADMAP.md queue 2, item 9. Decode a graph from ldpc_graph(H) "
-            "or ldpc_graph_from_edges instead.")
+        from opticommpy_torch.comm import fec_lift
+
+        dec = fec_lift.make_lift_decoder(
+            lift["mode"], lift["n"], lift["R"], int(config.maxIter), config.alg,
+            config.msgDtype, bool(config.earlyExit))
+        out_llr, n_iters, fail = dec(llrs)
     elif graph.get("bk") is not None:
         bk = graph["bk"]
         mdt = torch.bfloat16 if config.msgDtype == "bf16" else torch.float32
@@ -630,3 +788,11 @@ def decode_ldpc(llrs, H=None, config: LDPCConfig = LDPCConfig(), graph=None):
         out_llr = out_llr[:n_in]
     decoded = (out_llr < 0).to(torch.int8)
     return decoded, out_llr, fail.to(torch.int8)
+
+
+def decode_hamming(llrs, m=3, extended=False, max_iter=25):
+    """Soft-decision Hamming decoding: belief propagation (SPA) on the
+    graph of the column-permuted H that :func:`encode_hamming` returns."""
+    H = hamming_parity_check_matrix(m, extended)
+    _, _, Hm = par2gen(H)
+    return decode_ldpc(llrs, H=Hm, config=LDPCConfig(maxIter=max_iter))

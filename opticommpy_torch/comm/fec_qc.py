@@ -21,13 +21,20 @@ Backends of :func:`make_qc_decoder`:
   (:mod:`opticommpy_torch.kernels.ldpc`);
 - ``'fused'``: carry ``(M, T, Tp)``, one K9 and one K10 launch per step
   (:mod:`opticommpy_torch.kernels.qc`); on CPU tensors their plain versions;
-- ``'auto'``: by the LLRs' device, as the JAX package routes: ``'xla'`` on
-  the CPU and for SPA; on CUDA, MSA/NMSA go to ``'fused'`` where the JAX
-  package's megakernel would not take them (:func:`takes_megakernel`), and
-  raise ``NotImplementedError`` where it would.
+- ``'mega'``: the whole decode in one launch of K11
+  (:mod:`opticommpy_torch.kernels.qc_mega`), flooding or layered; on CPU
+  tensors its plain version :func:`mega_decode_plain`. As in the JAX
+  package, a flooding configuration that the megakernel's budget refuses
+  (:func:`takes_megakernel`) takes the fused route instead;
+- ``'auto'``: by the LLRs' device, as the JAX package routes on an
+  accelerator: on CUDA, MSA/NMSA go to ``'mega'`` where
+  :func:`takes_megakernel` holds (bfloat16 messages at every rate, float32
+  at rates 1/4 to 2/3) and to ``'fused'`` elsewhere; SPA and CPU tensors go
+  to ``'xla'``.
 
-The megakernel (``'mega'``, K11) and the ``layered`` schedule are not ported
-yet (``ROADMAP.md`` queue 2, item 8); they raise ``NotImplementedError``.
+The ``layered`` schedule (serial-C: in-place float32 totals, later check
+columns see earlier columns' new messages within a sweep) runs on
+``'mega'`` only, or on ``'auto'`` with CUDA tensors.
 """
 
 from functools import lru_cache
@@ -40,16 +47,16 @@ from .codes import _rate_tag
 
 Z = 360  # ETSI EN 302 307-1 group size
 
-_NOT_PORTED = ("is not ported yet: the DVB-S2 megakernel (K11) and its "
-               "layered schedule are ROADMAP.md queue 2, item 8; use "
-               "schedule='flooding' with backend 'auto', 'fused', 'pallas' "
-               "or 'xla'")
-
 # the JAX package's megakernel keeps the whole decoder state of a
 # 128-codeword tile resident and takes a configuration when that state fits
-# this budget (opticommpy_tpu/kernels/qc_mega.py:311-336)
-_MEGA_BUDGET = 100 * 2**20
+# this budget (opticommpy_tpu/kernels/qc_mega.py:311-340); the port routes by
+# the same rule
+MEGA_VMEM_BUDGET = 100 * 2**20
 _MEGA_TILE = 128
+
+
+class MegaBudgetError(ValueError):
+    """Megakernel resident state exceeds the budget."""
 
 
 def qc_tables(R="4/5", n=64800):
@@ -99,19 +106,35 @@ def qc_tables(R="4/5", n=64800):
     }
 
 
-def takes_megakernel(tb, msg_dtype):
-    """Whether the JAX package's ``'auto'`` route on an accelerator decodes
-    the code ``tb`` (MSA/NMSA, flooding) with ``msg_dtype`` messages on its
-    megakernel K11 (``opticommpy_tpu/comm/fec_qc.py:406-457``): when the
-    flooding state of a 128-codeword tile fits the megakernel's budget,
-    whatever the batch (smaller batches are padded to the tile). True for
-    bfloat16 at every rate, and for float32 at 1/4, 1/3, 2/5, 1/2 and 2/3."""
+def mega_state_bytes(G, q, S, bt, msg_dtype, schedule="flooding"):
+    """Bytes the JAX package's megakernel keeps resident for a tile of
+    ``bt`` codewords with ``msg_dtype`` ('bf16' or 'f32') messages. The
+    layered schedule keeps one float32 totals buffer, flooding the totals in
+    the message type and a float32 accumulator."""
     msz = 2 if msg_dtype == "bf16" else 4
-    bt, D = _MEGA_TILE, tb["S"] + 2
-    nbytes = ((tb["G"] + tb["q"]) * Z * bt * (msz + 4 + 4)  # totals, accumulators, outputs
-              + 2 * D * Z * bt * msz  # messages and edge values of one column
-              + 8 * Z * bt * 4)  # roll and vote planes
-    return nbytes <= _MEGA_BUDGET
+    D = S + 2
+    GZ = G * Z
+    if schedule == "layered":
+        return (GZ * bt * (4 + 4)  # T (f32, in place), fT
+                + q * Z * bt * (4 + 4)  # Tp, fTp
+                + 2 * D * Z * bt * msz  # messages and edge values of one column
+                + 8 * Z * bt * 4)  # roll and vote planes
+    return (GZ * bt * (msz + 4 + 4)  # totals, accumulators, outputs
+            + q * Z * bt * (msz + 4 + 4)
+            + 2 * D * Z * bt * msz
+            + 8 * Z * bt * 4)
+
+
+def takes_megakernel(tb, msg_dtype, schedule="flooding"):
+    """Whether the JAX package's ``'auto'`` route on an accelerator decodes
+    the code ``tb`` (MSA/NMSA) with ``msg_dtype`` messages on its
+    megakernel K11 (``opticommpy_tpu/comm/fec_qc.py:406-457``): when the
+    state of a 128-codeword tile fits the megakernel's budget, whatever the
+    batch (smaller batches are padded to the tile). Flooding: true for
+    bfloat16 at every rate, and for float32 at 1/4, 1/3, 2/5, 1/2 and 2/3;
+    layered: true for every shipped rate and type."""
+    return (mega_state_bytes(tb["G"], tb["q"], tb["S"], _MEGA_TILE, msg_dtype, schedule)
+            <= MEGA_VMEM_BUDGET)
 
 
 def slot_tables(tb):
@@ -226,18 +249,23 @@ def make_qc_decoder(n, R, max_iter, alg="MSA", msg_dtype="f32", early_exit=False
     ``msg_dtype`` is the storage type of the messages (math in float32).
     ``early_exit=True`` stops once every codeword converged, with outputs
     identical to the fixed loop (per-codeword results freeze at their own
-    convergence either way); the loop reads the batch's flag back to the
-    host once per step. ``backend``: 'auto' | 'xla' | 'pallas' | 'fused'
-    (module docstring). ``schedule``: 'flooding'.
+    convergence either way): on ``'mega'`` each codeword's CTA stops on the
+    device; the other routes read the batch's flag back to the host once
+    per step. ``backend``: 'auto' | 'xla' | 'pallas' | 'fused' | 'mega'
+    (module docstring). ``schedule``: 'flooding' or 'layered' (``'mega'``,
+    or ``'auto'`` with CUDA tensors; raises ``ValueError`` elsewhere, as
+    the JAX package does).
     """
     if schedule not in ("flooding", "layered"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    if schedule == "layered":
-        raise NotImplementedError(f"schedule='layered' {_NOT_PORTED}")
-    if backend == "mega":
-        raise NotImplementedError(f"backend='mega' {_NOT_PORTED}")
-    if backend not in ("auto", "xla", "pallas", "fused"):
+    if schedule == "layered" and backend not in ("mega", "auto"):
+        raise ValueError("schedule='layered' runs inside the megakernel only (backend 'mega' "
+                         "or 'auto')")
+    if backend not in ("auto", "xla", "pallas", "fused", "mega"):
         raise ValueError(f"unknown backend {backend!r}")
+    kernel_alg = alg in ("MSA", "NMSA")
+    if schedule == "layered" and backend == "auto" and not kernel_alg:
+        raise ValueError(_LAYERED_NEEDS_MEGA)
     tb = qc_tables(R, n)
     if backend == "fused":
         return _make_fused_decoder(tb, max_iter, alg, msg_dtype, early_exit)
@@ -247,28 +275,33 @@ def make_qc_decoder(n, R, max_iter, alg="MSA", msg_dtype="f32", early_exit=False
         alpha = 0.75 if alg == "NMSA" else None
         return _make_roll_decoder(tb, max_iter, msg_dtype, early_exit,
                                   lambda x: check_update_msa(x, alpha))
+    if backend == "mega" or (backend == "auto" and kernel_alg):
+        # the megakernel where its budget takes the configuration; flooding
+        # hands off to the fused route elsewhere, as in the JAX package
+        if takes_megakernel(tb, msg_dtype, schedule):
+            on_cuda = _make_mega_decoder(tb, max_iter, alg, msg_dtype, early_exit, schedule)
+        elif schedule == "layered":
+            raise MegaBudgetError("schedule='layered' requires a megakernel-eligible config")
+        else:
+            on_cuda = _make_fused_decoder(tb, max_iter, alg, msg_dtype, early_exit)
+        if backend == "mega":
+            return on_cuda
     xla = _make_roll_decoder(tb, max_iter, msg_dtype, early_exit, _plain_check_update(alg))
-    if backend == "xla" or alg not in ("MSA", "NMSA"):
+    if backend == "xla" or not kernel_alg:
         return xla
-    if takes_megakernel(tb, msg_dtype):
-        def decode(llrs):
-            if llrs.is_cuda:
-                raise NotImplementedError(
-                    f"make_qc_decoder(backend='auto') on CUDA: the JAX package "
-                    f"decodes DVB-S2 R{R} {alg} with {msg_dtype} messages on its "
-                    f"megakernel (K11), which is not ported yet (ROADMAP.md queue "
-                    f"2, item 8); decode with msgDtype='f32' at rate 3/5, 3/4, "
-                    f"4/5, 5/6, 8/9 or 9/10, or build make_qc_decoder(..., "
-                    f"backend='fused') for the K9/K10 route")
-            return xla(llrs)
-
-        return decode
-    fused = _make_fused_decoder(tb, max_iter, alg, msg_dtype, early_exit)
 
     def decode(llrs):
-        return fused(llrs) if llrs.is_cuda else xla(llrs)
+        if llrs.is_cuda:
+            return on_cuda(llrs)
+        if schedule == "layered":
+            raise ValueError(_LAYERED_NEEDS_MEGA)
+        return xla(llrs)
 
     return decode
+
+
+_LAYERED_NEEDS_MEGA = ("schedule='layered' needs the megakernel (MSA/NMSA on CUDA tensors, "
+                       "or backend='mega' explicitly for its plain version on the CPU)")
 
 
 def _plain_check_update(alg):
@@ -335,15 +368,18 @@ def fused_init(tb, llrs, msg_dtype):
     carry a dict of the messages ``M``, the totals in the message type
     ``Tc`` and ``Tpc``, ``done``, the frozen outputs ``fT`` and ``fTp``, and
     ``n_iters``."""
-    B, dev = llrs.shape[1], llrs.device
-    mdt = _msg_dtype(msg_dtype)
     llr_info, llr_p = _split_llrs(tb, llrs)
     llr_info = llr_info.contiguous()
-    carry = dict(M=torch.zeros((tb["S"] + 2, tb["q"], Z, B), dtype=mdt, device=dev),
-                 Tc=llr_info.to(mdt), Tpc=llr_p.to(mdt),
-                 done=torch.zeros(B, dtype=torch.bool, device=dev), fT=llr_info, fTp=llr_p,
-                 n_iters=torch.zeros(B, dtype=torch.int32, device=dev))
-    return llr_info, llr_p, carry
+    return llr_info, llr_p, _fused_carry(llr_info, llr_p, tb["S"], msg_dtype)
+
+
+def _fused_carry(llr_info, llr_p, S, msg_dtype):
+    B, dev = llr_info.shape[-1], llr_info.device
+    mdt = _msg_dtype(msg_dtype)
+    return dict(M=torch.zeros((S + 2, llr_p.shape[0], Z, B), dtype=mdt, device=dev),
+                Tc=llr_info.to(mdt), Tpc=llr_p.to(mdt),
+                done=torch.zeros(B, dtype=torch.bool, device=dev), fT=llr_info, fTp=llr_p,
+                n_iters=torch.zeros(B, dtype=torch.int32, device=dev))
 
 
 def fused_step(carry, llr_info, llr_p, lay, alpha, kk, K, plain=False):
@@ -371,6 +407,44 @@ def fused_step(carry, llr_info, llr_p, lay, alpha, kk, K, plain=False):
     carry.update(done=done, Tc=T if Tc is None else Tc, Tpc=Tp.to(M.dtype))
 
 
+def _kernel_alpha(alg):
+    """The normalisation of the kernel routes' ``alg`` (None for MSA);
+    raises ``ValueError`` for SPA."""
+    if alg not in ("MSA", "NMSA"):
+        raise ValueError("fused QC decoder supports MSA/NMSA only")
+    return 0.75 if alg == "NMSA" else None
+
+
+def _layout(layouts, tb, dev):
+    """The :class:`~opticommpy_torch.kernels.qc.QCLayout` of ``tb`` on
+    ``dev``, cached in ``layouts``."""
+    from opticommpy_torch.kernels import qc as qck
+
+    lay = layouts.get(dev)
+    if lay is None:
+        lay = layouts[dev] = qck.QCLayout(tb, dev)
+    return lay
+
+
+def _make_mega_decoder(tb, max_iter, alg, msg_dtype, early_exit, schedule):
+    """The megakernel route: the whole decode (flooding or layered) in one
+    K11 launch per call, each codeword's early exit on the device; on CPU
+    tensors its plain version :func:`mega_decode_plain`."""
+    from opticommpy_torch.kernels.qc_mega import qc_decode_mega
+
+    alpha = _kernel_alpha(alg)
+    layouts = {}
+
+    def decode(llrs):
+        lay = _layout(layouts, tb, llrs.device)
+        llr_info, llr_p = _split_llrs(tb, llrs)
+        fT, fTp, done, n_iters = qc_decode_mega(llr_info, llr_p, lay, max_iter + 1, alpha,
+                                                msg_dtype, early_exit, schedule)
+        return _outputs(tb, fT, fTp, n_iters, done)
+
+    return decode
+
+
 def _make_fused_decoder(tb, max_iter, alg, msg_dtype, early_exit):
     """The fused route: carry ``(M, T, Tp)``, K9 then K10 per step.
 
@@ -380,21 +454,15 @@ def _make_fused_decoder(tb, max_iter, alg, msg_dtype, early_exit):
     step delayed: step kk folds the vote of its input totals (discarded at
     kk = 0, where they are the channel LLRs), the loop runs max_iter + 1
     steps, and the last step only contributes its vote. Outputs equal the
-    plain route's up to float32 summation order.
+    plain route's up to float32 summation order; K11's flooding schedule
+    equals this route bit for bit.
     """
-    from opticommpy_torch.kernels import qc as qck
-
-    if alg not in ("MSA", "NMSA"):
-        raise ValueError("fused QC decoder supports MSA/NMSA only")
-    alpha = 0.75 if alg == "NMSA" else None
+    alpha = _kernel_alpha(alg)
     K = max_iter + 1
     layouts = {}
 
     def decode(llrs):
-        dev = llrs.device
-        lay = layouts.get(dev)
-        if lay is None:
-            lay = layouts[dev] = qck.QCLayout(tb, dev)
+        lay = _layout(layouts, tb, llrs.device)
         llr_info, llr_p, c = fused_init(tb, llrs, msg_dtype)
         for kk in range(K):
             # early exit: one device-to-host read of the batch flag per step
@@ -404,3 +472,100 @@ def _make_fused_decoder(tb, max_iter, alg, msg_dtype, early_exit):
         return _outputs(tb, c["fT"], c["fTp"], c["n_iters"], c["done"])
 
     return decode
+
+
+def mega_decode_plain(llr_info, llr_p, lay, K, alpha=None, msg_dtype="f32", early_exit=False,
+                      schedule="flooding"):
+    """K11's plain version: the whole decode of ``K`` steps (``max_iter +
+    1``) from llr_info (G, Z, B) float32 in bucket order and llr_p (q, Z,
+    B), with the :class:`~opticommpy_torch.kernels.qc.QCLayout` ``lay`` of
+    the code on their device. Returns (fT (G, Z, B), fTp (q, Z, B) float32
+    frozen totals, done (B,) bool, n_iters (B,) int32).
+
+    - ``'flooding'``: the fused route's steps (:func:`fused_step` on the
+      plain versions of K9 and K10): the vote delayed by one step and
+      discarded at step 0, the phantom last step that only votes, the
+      frozen outputs starting from the channel LLRs.
+    - ``'layered'``: :func:`_layered_plain`.
+
+    With ``early_exit`` the loop stops once every codeword is done; the
+    outputs are the fixed loop's, frozen per codeword.
+    """
+    if schedule == "layered":
+        return _layered_plain(llr_info, llr_p, lay, K, alpha, msg_dtype, early_exit)
+    c = _fused_carry(llr_info, llr_p, lay.S, msg_dtype)
+    for kk in range(K):
+        if early_exit and bool(c["done"].all()):
+            break
+        fused_step(c, llr_info, llr_p, lay, alpha, kk, K, plain=True)
+    return c["fT"], c["fTp"], c["done"], c["n_iters"]
+
+
+def _layered_plain(llr_info, llr_p, lay, K, alpha, msg_dtype, early_exit):
+    """Serial-C sweeps over the q check columns (the JAX megakernel's
+    layered branch, ``qc_mega.py:58-65,83-90,195-229,248-264``). Per column:
+    x = rolled float32 totals - old message, rounded to the message type;
+    min/sign over the S + 2 slots; the new messages, rounded to the message
+    type; the deltas new - old added to the totals in place, slot by slot
+    (two slots of one column may reach one group). The staircase slot is
+    masked at check 0, and column 0's staircase delta reaches plane q - 1
+    rolled by -1. The vote of each sweep sees mid-sweep totals; the sweep
+    where ``done`` first latches freezes its end-of-sweep totals: ``frozen
+    = done_before | (last & ~ok)``."""
+    S, q = lay.S, lay.q
+    D = S + 2
+    mdt = _msg_dtype(msg_dtype)
+    B, dev = llr_info.shape[-1], llr_info.device
+    T, Tp = llr_info.clone(), llr_p.clone()
+    M = torch.zeros((q, D, Z, B), dtype=mdt, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    n_iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    fT, fTp = T.clone(), Tp.clone()
+    pos, sh = lay.pos_np, lay.sh_np
+    for k in range(K):
+        if early_exit and bool(done.all()):
+            break
+        vote = torch.ones(B, dtype=torch.bool, device=dev)
+        for j in range(q):
+            jm1 = q - 1 if j == 0 else j - 1
+            tot = torch.stack([_roll(T[pos[sl, j]], sh[sl, j]) for sl in range(S)]
+                              + [Tp[j], _roll(Tp[jm1], 1 if j == 0 else 0)])
+            old = M[j].float()
+            x = (tot - old).to(mdt).float()
+            tneg = tot < 0
+            if j == 0:  # check 0 has no p_{-1}
+                x[S + 1, 0] = float("inf")
+                tneg[S + 1, 0] = False
+            mag = x.abs()
+            m1 = torch.full_like(mag[0], float("inf"))
+            m2 = torch.full_like(mag[0], float("inf"))
+            for sl in range(D):
+                m2 = torch.minimum(m2, torch.maximum(m1, mag[sl]))
+                m1 = torch.minimum(m1, mag[sl])
+            neg = x < 0
+            parx = torch.sum(neg, dim=0, dtype=torch.int32) & 1
+            partot = torch.sum(tneg, dim=0, dtype=torch.int32) & 1
+            vote &= torch.all(partot == 0, dim=0)
+            om = torch.where(mag == m1, m2, m1)
+            if alpha is not None:
+                om = om * alpha
+            new = torch.where((parx ^ neg.to(torch.int32)) == 1, -om, om).to(mdt)
+            delta = new.float() - old  # before M[j] changes: at float32 old is M[j]
+            M[j] = new
+            for sl in range(S):
+                T[int(pos[sl, j])] += _roll(delta[sl], -int(sh[sl, j]))
+            Tp[j] += delta[S]
+            d = delta[S + 1]
+            if j == 0:
+                d[0] = 0.0
+                d = torch.roll(d, -1, dims=0)
+            Tp[jm1] += d
+        ok = vote & (k > 0)
+        done_before = done
+        done = done | ok
+        last = k == K - 1
+        n_iters = n_iters + (~done & (not last)).to(torch.int32)
+        frozen = done_before | (last & ~ok) if k > 0 else torch.zeros_like(done)
+        fT = torch.where(frozen, fT, T)
+        fTp = torch.where(frozen, fTp, Tp)
+    return fT, fTp, done, n_iters

@@ -15,6 +15,10 @@
 - :mod:`qc` — one fused step of the quasi-cyclic DVB-S2 decoder: the
   check-column update and the variable totals (replaces both kernels of
   ``kernels/qc_pallas.py``).
+- :mod:`qc_mega` — the whole DVB-S2 decode in one launch, flooding or
+  layered (replaces ``kernels/qc_mega.py``).
+- :mod:`lift` — one flooding iteration of the 802.11n / AR4JA
+  lifted-circulant decoder (replaces ``kernels/lift_pallas.py``).
 
 A wrapper runs the plain version for a CPU tensor, and the kernel, or
 raises, for a CUDA tensor. The kernels are built with nvcc on first use

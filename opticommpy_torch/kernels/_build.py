@@ -43,6 +43,8 @@ _SIGNATURES = {
     "ldpc_check_launch": [_I, _I, _P, ctypes.c_longlong, _I, _F, _P, _P],
     "qc_check_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "qc_var_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "qc_mega_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _F, _I, *[_P] * 13, _P],
+    "lift_iter_launch": [_I, _I, _I, _I, _I, _I, _F, *[_P] * 13, _P],
 }
 
 _lib = None

@@ -333,8 +333,10 @@ def coherent_coded_serve(sig_batch, H_batch, config: CoherentDSPConfig = Coheren
     """Complete coded coherent receiver (port of the JAX
     ``coherent_coded_serve``): :func:`coherent_dsp_serve` -> bit LLRs
     (:func:`~opticommpy_torch.comm.metrics.calc_llr`) -> LDPC belief
-    propagation (:func:`~opticommpy_torch.comm.fec.decode_ldpc`; the fused
-    QC kernels for DVB-S2 graphs on CUDA).
+    propagation (:func:`~opticommpy_torch.comm.fec.decode_ldpc`; for DVB-S2
+    graphs on CUDA the whole-decode kernel K11 at the default bfloat16
+    messages, the fused kernels K9 + K10 for float32 at rates 3/5 and
+    above).
 
     Framing: per signal, the recovered (nSym, modes) symbol grid is read
     mode-major (all of mode 0's symbols, then mode 1's, ...), each symbol
@@ -350,9 +352,8 @@ def coherent_coded_serve(sig_batch, H_batch, config: CoherentDSPConfig = Coheren
     noise_var : per-symbol noise variance of the LLR model (scalar).
     fec_graph : decoding graph (default: DVB-S2 64800b R4/5).
     fec_config : :class:`~opticommpy_torch.comm.fec.LDPCConfig` (default:
-        20-iteration bf16 NMSA with early exit; on CUDA that is the JAX
-        package's megakernel, not ported yet, and raises: pass
-        ``msgDtype="f32"`` to decode R4/5 on the fused kernels).
+        20-iteration bf16 NMSA with early exit, which decodes on K11 on
+        CUDA, each codeword's CTA stopping at its own convergence).
     pilot_grid : optional (B, P, modes) known leading Tx symbols (any
         scale). Blind BPS leaves a k*pi/2 ambiguity per column; the
         correlation of the first P recovered symbols with the pilots sets

@@ -286,7 +286,7 @@ def test_check_update_plain_equals_pallas_kernel(dtype, alpha):
 @pytest.mark.parametrize("mdt", ["bf16", "f32"])
 @pytest.mark.parametrize("R", DVBS2_RATES)
 def test_megakernel_routing_matches_jax(R, mdt):
-    """'auto' on CUDA refuses exactly the configurations that the JAX
+    """'auto' on CUDA sends to K11 exactly the configurations that the JAX
     package's 'auto' on an accelerator decodes on its megakernel: those
     whose state for a 128-codeword tile fits the megakernel's budget
     (opticommpy_tpu/comm/fec_qc.py:406-457)."""
@@ -301,21 +301,29 @@ def test_megakernel_routing_matches_jax(R, mdt):
 
 
 def test_unported_routes_raise():
-    with pytest.raises(NotImplementedError, match="queue 2, item 8"):
-        tqc.make_qc_decoder(64800, "4/5", 5, "MSA", "bf16", backend="mega")
-    with pytest.raises(NotImplementedError, match="queue 2, item 8"):
-        tqc.make_qc_decoder(64800, "4/5", 5, "MSA", "bf16", schedule="layered")
-    with pytest.raises(ValueError, match="unknown schedule"):
-        tqc.make_qc_decoder(64800, "4/5", 5, "MSA", "bf16", schedule="zigzag")
-    with pytest.raises(ValueError, match="MSA/NMSA only"):
-        tqc.make_qc_decoder(64800, "4/5", 5, "SPA", "f32", backend="fused")
-    graph, _ = tfec.standard_ldpc("DVBS2", 64800, "4/5")
-    llr = torch.ones((64800, 1))
-    with pytest.raises(NotImplementedError, match="queue 2, item 8"):
-        tfec.decode_ldpc(llr, graph=graph, config=tfec.LDPCConfig(schedule="layered"))
+    """Nothing of the LDPC stack raises NotImplementedError any more: 'mega',
+    the layered schedule and lift graphs decode on the CPU (the kernels'
+    plain versions). What still raises mirrors the JAX package, with the
+    same error class."""
+    llr = torch.as_tensor(np.full((64800, 1), 3.0, np.float32))
+    for kw in (dict(backend="mega"), dict(backend="mega", schedule="layered")):
+        _, n_iters, fail = tqc.make_qc_decoder(64800, "4/5", 5, "MSA", "bf16", **kw)(llr)
+        assert n_iters.tolist() == [1] and not bool(fail.any())
     lift, _ = tfec.standard_ldpc("IEEE_802.11nD2", 648, "1/2")
-    with pytest.raises(NotImplementedError, match="queue 2, item 9"):
-        tfec.decode_ldpc(torch.ones((648, 1)), graph=lift)
+    dec, _, fail = tfec.decode_ldpc(torch.full((648, 1), 3.0), graph=lift)
+    assert not bool(dec.any()) and not bool(fail.any())
+    for mod in (tqc, jqc):
+        with pytest.raises(ValueError, match="unknown schedule"):
+            mod.make_qc_decoder(64800, "4/5", 5, "MSA", "bf16", schedule="zigzag")
+        with pytest.raises(ValueError, match="MSA/NMSA only"):
+            mod.make_qc_decoder(64800, "4/5", 5, "SPA", "f32", backend="fused")
+        with pytest.raises(ValueError, match="megakernel only"):
+            mod.make_qc_decoder(64800, "4/5", 5, "MSA", "bf16", backend="fused",
+                                schedule="layered")
+    graph, _ = tfec.standard_ldpc("DVBS2", 64800, "4/5")
+    with pytest.raises(ValueError, match="needs the megakernel"):
+        tfec.decode_ldpc(torch.ones((64800, 1)), graph=graph,
+                         config=tfec.LDPCConfig(alg="NMSA", schedule="layered"))
     H = jfec.gallager_ldpc(24, 3, 6, seed=5)
     with pytest.raises(ValueError, match="layered"):
         tfec.decode_ldpc(torch.ones((24, 1)), graph=tfec.ldpc_graph(H),

@@ -147,15 +147,20 @@ def test_cuda_decode_launches_the_kernels_and_no_plain_path():
 @pytest.mark.gpu
 def test_cuda_auto_refuses_the_megakernels_work():
     """bfloat16 messages at R4/5 are the JAX megakernel's on an accelerator:
-    'auto' on CUDA raises instead of handing them to K9/K10, and launches
-    nothing; the explicit 'fused' route still takes them."""
+    'auto' on CUDA leaves them to K11 (one launch per decode) and launches
+    neither K9 nor K10; the explicit 'fused' route still takes them, with
+    the same bits."""
+    from opticommpy_torch.kernels import qc_mega as tmega
+
     dev = require_cuda()
     llr = torch.as_tensor(zero_codeword_llrs(23, (5.0,)), device=dev)
     graph, _ = tfec.standard_ldpc("DVBS2", 64800, "4/5")
-    k9, k10 = tqck.check_launches, tqck.var_launches
-    with pytest.raises(NotImplementedError, match="queue 2, item 8"):
-        tfec.decode_ldpc(llr, graph=graph, config=tfec.LDPCConfig(alg="NMSA", msgDtype="bf16"))
-    assert (tqck.check_launches, tqck.var_launches) == (k9, k10)
-    _, n_iters, fail = tqc.make_qc_decoder(64800, "4/5", 6, "NMSA", "bf16", backend="fused")(llr)
+    k9, k10, k11 = tqck.check_launches, tqck.var_launches, tmega.launches
+    dec, out, fail = tfec.decode_ldpc(llr, graph=graph, config=tfec.LDPCConfig(
+        maxIter=6, alg="NMSA", msgDtype="bf16"))
+    assert (tqck.check_launches, tqck.var_launches, tmega.launches) == (k9, k10, k11 + 1)
+    tot, n_iters, fail_f = tqc.make_qc_decoder(64800, "4/5", 6, "NMSA", "bf16",
+                                               backend="fused")(llr)
     assert (tqck.check_launches, tqck.var_launches) == (k9 + 7, k10 + 7)
-    assert not bool(fail.any())
+    assert not bool(fail_f.any()) and not bool(fail.any())
+    assert torch.equal(out, tot) and torch.equal(fail, fail_f.to(torch.int8))
