@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's coherent WDM paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's coherent WDM and IM-DD paths once on one
+NVIDIA GPU.
 
 Phases:
 1. device: needs CUDA (exits non-zero otherwise); prints the card's
@@ -106,7 +107,29 @@ Phases:
       decisions, iterations and fail flags equal to the plain 'xla' lift
       route on the card; info Mbit/s; then 802.11n 1944 R1/2 at B = 1024 on
       its plain route on the card.
-11. the time of every phase; then the kernels JSON line (K1-K12, each with
+11. K13 and K14 vs plain, every comparison exact: K13, the DFE/FFE
+   recurrence, at the IM-DD serving shape (PAM4, B = 8 x 16,384 symbols,
+   15 / 5 taps, the real instance) as DFE and FFE, a signal alone against
+   the batch, the PAM4 input on the complex instance against the real one,
+   and on the complex instance 16-QAM fulltime (per-axis quantizer) and
+   8-PSK (argmin) at 8 x 4,096; K14, the Volterra recurrence, at
+   bench_dsp.py's shape (B = 8 x 16,384 symbols, SpS 2, 13 / 7 / 5 taps,
+   mu 1e-3, nTrain 4000) at order 2 and 3, BER 0 after nTrain required.
+12. path H, IM-DD serving at the JAX package's bench size
+   (bench.run_imdd_chain), counters reset just before each run and read
+   just after: 8 links of PAM4 at 25 GBd, SpS 8, 2**17 bits (2**19
+   samples), 3 dBm, built on the card by ``pam_tx_draw`` / ``pam_tx_build``
+   -> ``linear_fiber_channel`` (10 km) -> ``photodiode`` (20 GHz); then
+   ``imdd_dsp_chain_batch`` with the DFE and with the FFE (IMDDConfig taps
+   15 / 5, mu 2e-3, nTrain 8000, fulltime; K13 1 launch each): every link's
+   BER after 2 nTrain < 1e-3 and tail MSE < 0.05, the median BER within 2 x
+   JAX + 1e-4 (numbers from ``tools/jax_imdd_reference.py``), and the chain
+   on the first 16,384 symbols of every link on CUDA against the same on
+   the CPU (plain version); warm ms and Msym/s at B = 8 and, time only, at
+   B = 132; then the links' SpS-2 samples through ``volterra_kernel``
+   (order 3, 13 / 7 / 5; K14 1 launch), BER printed, the kernel against
+   the plain version on the CPU on a 4,096-symbol prefix.
+13. the time of every phase; then the kernels JSON line (K1-K14, each with
    its bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s),
    and last the ``{"ok": true, "device": ...}`` line.
 
@@ -264,6 +287,30 @@ JAX_CR_BC = {
             (-0.1968017816543579, 1.3611117601394653),
             (3.999986171722412, 3.99999737739563),
             (3.0697131156921387, 3.9938511848449707))},
+}
+
+# The JAX package (0.9.0) on the CPU at path H's configuration, per link
+# (BER after 2 nTrain, MSE of the last 4,000 symbols):
+# JAX_PLATFORMS=cpu python tools/jax_imdd_reference.py
+# The same tool runs the JAX Volterra scan on the K14 phase's 8 rows: BER 0
+# after nTrain on every row at order 2 and 3, the gate that phase holds.
+JAX_IMDD = {
+    "dfe": ((0.0, 0.0014324813382700086),
+            (0.0, 0.0013805757043883204),
+            (0.0, 0.001427816809155047),
+            (0.0, 0.0013922563521191478),
+            (0.0, 0.0013749608770012856),
+            (0.0, 0.0013732515508309007),
+            (0.0, 0.0014070846373215318),
+            (0.0, 0.0013923271326348186)),
+    "ffe": ((0.0, 0.0014838691568002105),
+            (0.0, 0.0014339707558974624),
+            (0.0, 0.0014776047319173813),
+            (0.0, 0.0014470398891717196),
+            (0.0, 0.0014234490226954222),
+            (0.0, 0.0014236016431823373),
+            (0.0, 0.0014578639529645443),
+            (0.0, 0.0014408150454983115)),
 }
 
 BPS_MAX_MISMATCH = 0.01  # the JAX package's near-tie rule
@@ -862,31 +909,32 @@ def _retained(n_samples_in):
 
 
 def _counts():
-    from opticommpy_torch.kernels import (bps, ddpll, gardner, ldpc, lift, mimo_eq, qc,
-                                          qc_mega, rls)
+    from opticommpy_torch.kernels import (bps, ddpll, dfe, gardner, ldpc, lift, mimo_eq, qc,
+                                          qc_mega, rls, volterra)
 
     return dict(bps=bps.launches, mimo_eq=mimo_eq.launches,
                 mimo_eq_batch=mimo_eq.batch_launches, rls=rls.launches,
                 rls_batch=rls.batch_launches, gardner=gardner.launches,
                 ddpll=ddpll.launches, ldpc_check=ldpc.launches,
                 qc_check=qc.check_launches, qc_var=qc.var_launches,
-                qc_mega=qc_mega.launches, lift_iter=lift.launches)
+                qc_mega=qc_mega.launches, lift_iter=lift.launches, dfe=dfe.launches,
+                volterra=volterra.launches)
 
 
 def _reset_counts():
-    from opticommpy_torch.kernels import (bps, ddpll, gardner, ldpc, lift, mimo_eq, qc,
-                                          qc_mega, rls)
+    from opticommpy_torch.kernels import (bps, ddpll, dfe, gardner, ldpc, lift, mimo_eq, qc,
+                                          qc_mega, rls, volterra)
 
     bps.launches = mimo_eq.launches = mimo_eq.batch_launches = 0
     rls.launches = rls.batch_launches = gardner.launches = ddpll.launches = 0
     ldpc.launches = qc.check_launches = qc.var_launches = 0
-    qc_mega.launches = lift.launches = 0
+    qc_mega.launches = lift.launches = dfe.launches = volterra.launches = 0
 
 
 def _expect(**nonzero):
     out = dict.fromkeys(("bps", "mimo_eq", "mimo_eq_batch", "rls", "rls_batch", "gardner",
                          "ddpll", "ldpc_check", "qc_check", "qc_var", "qc_mega",
-                         "lift_iter"), 0)
+                         "lift_iter", "dfe", "volterra"), 0)
     out.update(nonzero)
     return out
 
@@ -1107,7 +1155,8 @@ def run_serve_path_c(dev, res, n_train=12000, n_channels=11):
     from opticommpy_torch.dsp.equalization import mimo_apply, mimo_apply_fused
     from opticommpy_torch.kernels.bps import bps_kernel
     from opticommpy_torch.ops import fir_filter
-    from opticommpy_torch.pipelines import CoherentDSPConfig, _norm_const, coherent_dsp_serve
+    from opticommpy_torch.comm.modulation import norm_const
+    from opticommpy_torch.pipelines import CoherentDSPConfig, coherent_dsp_serve
 
     t0 = time.perf_counter()
     x_b, front_b, ref_b, scale_b, pulse2, edc_cfg = serve_inputs(res, n_channels)
@@ -1145,7 +1194,7 @@ def run_serve_path_c(dev, res, n_train=12000, n_channels=11):
     rel = []
     for k in sorted({0, n_channels // 2, n_channels - 1}):
         y_k = mimo_apply(H_b[k], edc(fir_filter(pulse2, x_b[k]), edc_cfg) / scale_b[k], 2)
-        ph = unwrap(4 * bps_kernel(y_k, 37, _norm_const(16), 64), dim=0) / 4
+        ph = unwrap(4 * bps_kernel(y_k, 37, norm_const(16, "qam"), 64), dim=0) / 4
         ref_k = (y_k * torch.exp(1j * ph))[32:n_sym - 612]
         rel.append(float(torch.linalg.norm(out[k, 32:n_sym - 612] - ref_k)
                          / torch.linalg.norm(ref_k)))
@@ -1677,14 +1726,13 @@ def run_coded_path_d(dev, res, n_train=12000, n_channels=11, seed=7):
 
     from opticommpy_torch.comm import fec, fec_qc
     from opticommpy_torch.comm.fec import encode_ldpc, standard_ldpc
-    from opticommpy_torch.comm.modulation import gray_mapping, modulate_gray
+    from opticommpy_torch.comm.modulation import gray_mapping, modulate_gray, norm_const
     from opticommpy_torch.dsp import MIMOEqualizerConfig, edc, mimo_adapt_equalizer_batch
     from opticommpy_torch.kernels import bps, ldpc, qc, qc_mega
     from opticommpy_torch.models import manakov_ssf
     from opticommpy_torch.models.tx import WDMTxConfig, wdm_tx_build, wdm_tx_draw
     from opticommpy_torch.ops import fir_filter, pnorm
-    from opticommpy_torch.pipelines import (CoherentDSPConfig, _norm_const,
-                                            coherent_coded_serve)
+    from opticommpy_torch.pipelines import CoherentDSPConfig, coherent_coded_serve
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1793,7 +1841,7 @@ def run_coded_path_d(dev, res, n_train=12000, n_channels=11, seed=7):
 
     # served symbols against the Tx: symbol errors per 1024-symbol block;
     # a quarter-turn BPS slip turns every later symbol of its polarization
-    const = torch.as_tensor(_norm_const(16), device=dev)
+    const = torch.as_tensor(norm_const(16, "qam"), device=dev)
 
     def nearest(z):
         return torch.argmin(torch.abs(z[..., None] - const), dim=-1)
@@ -1855,13 +1903,305 @@ def run_coded_path_d(dev, res, n_train=12000, n_channels=11, seed=7):
 
 
 
+# -- IM-DD: K13 (DFE / FFE) and K14 (Volterra), path H -----------------------
+
+IMDD_Y_ATOL = 1e-4  # path H, CUDA chain vs CPU chain: max |y| difference (decisions equal)
+VOL_PREFIX_ATOL = 1e-5  # path H Volterra, CUDA kernel vs CPU plain version, 4,096 symbols
+
+
+def _dfe_cost(n_b, n_sym, n_ff, n_fb, sps, cplx):
+    """(bytes, flops) of one DFE/FFE pass: the padded signal, the references,
+    the taps in and out, y and the error power; per symbol and tap a
+    product, a tree add and the update's three operations (x4 complex),
+    and ~10 for the slicer and the error."""
+    w = 8 if cplx else 4
+    nbytes = n_b * (w * ((n_sym - 1) * sps + n_ff) + w * n_sym + 2 * w * (n_ff + n_fb)
+                    + (w + 4) * n_sym)
+    return nbytes, n_b * n_sym * ((20 if cplx else 5) * (n_ff + n_fb) + 10)
+
+
+def _volterra_cost(n_b, n_sym, n_q, n1, sps):
+    """(bytes, flops) of one Volterra pass: the padded signal, the
+    references, the flat taps in and out, y and the error power; per symbol
+    and tap up to two feature products, the product with the tap, the add
+    and the update's two operations (~6), and ~10 for the slicer."""
+    nbytes = n_b * (4 * ((n_sym - 1) * sps + n1) + 4 * n_sym + 8 * n_q + 8 * n_sym)
+    return nbytes, n_b * n_sym * (6 * n_q + 10)
+
+
+def _pam_isi(n_b, n_sym, seed, h=(0.1, 0.25, 1.0, 0.3, -0.1), noise=0.03):
+    """(x (n_b, n_sym), symbols (n_b, n_sym)) float32: normalized PAM4
+    through an ISI channel with noise, one seed per row."""
+    out_x, out_s = [], []
+    const = np.array([-3.0, -1.0, 1.0, 3.0]) / np.sqrt(5)
+    for b in range(n_b):
+        r = np.random.default_rng(seed + b)
+        sym = const[r.integers(0, 4, size=n_sym)]
+        out_x.append(np.convolve(sym, h, "same") + noise * r.normal(size=n_sym))
+        out_s.append(sym)
+    return np.stack(out_x).astype(np.float32), np.stack(out_s).astype(np.float32)
+
+
+def _cplx_isi(n_b, n_sym, const, seed):
+    out_x, out_s = [], []
+    h = np.array([0.1 + 0.05j, 1.0, 0.2 - 0.1j])
+    for b in range(n_b):
+        r = np.random.default_rng(seed + b)
+        sym = const[r.integers(0, len(const), size=n_sym)]
+        out_x.append(np.convolve(sym, h, "same")
+                     + 0.02 * (r.normal(size=n_sym) + 1j * r.normal(size=n_sym)))
+        out_s.append(sym)
+    return np.stack(out_x).astype(np.complex64), np.stack(out_s).astype(np.complex64)
+
+
+def _nl_pam(n_b, n_sym, sps=2, seed=4):
+    """bench_dsp.py:355-358's Volterra signal, one noise draw per row."""
+    out_x, out_s = [], []
+    for b in range(n_b):
+        r = np.random.default_rng(seed + b)
+        sym = (2 * r.integers(0, 4, size=n_sym) - 3).astype(np.float32)
+        sig = np.repeat(sym, sps) + 0.1 * r.normal(size=n_sym * sps)
+        out_x.append(sig + 0.05 * sig**2)
+        out_s.append(sym)
+    return np.stack(out_x).astype(np.float32), np.stack(out_s).astype(np.float32)
+
+
+def phase_imdd_kernels(dev, n_pam=16384, n_cplx=4096, n_vol=16384):
+    """K13 and K14 against their plain versions on the card, and their
+    times. Every comparison is exact."""
+    from opticommpy_torch.comm.metrics import fast_ber_calc
+    from opticommpy_torch.dsp.equalization import VolterraConfig
+    from opticommpy_torch.kernels import dfe, volterra
+    from opticommpy_torch.ops.signal import pnorm
+
+    report = {}
+
+    def prepared(x, s, n_ff, const):
+        sig_pad, ref, n_out, _ = dfe.prepare(torch.as_tensor(x, device=dev),
+                                              torch.as_tensor(s, device=dev), n_ff, 1, const)
+        return sig_pad, ref, n_out
+
+    def compare(name, sig_pad, ref, const, n_ff, n_fb, use_fb, n_train, fulltime, timed=False):
+        dt = sig_pad.dtype
+        f0 = torch.zeros((sig_pad.shape[0], n_ff), dtype=dt, device=dev)
+        f0[:, n_ff // 2] = 1.0
+        b0 = torch.zeros((sig_pad.shape[0], n_fb), dtype=dt, device=dev)
+        args = (const, f0, b0, ref.shape[1], 1, 2e-3, n_train, fulltime, use_fb)
+        out_k = dfe.dfe_run(sig_pad, ref, *args)
+        out_p, plain_s = _wall(lambda: dfe.dfe_pass_plain(sig_pad, ref, *args))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(out_k, out_p))
+        err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
+        ms = _cuda_ms(lambda: dfe.dfe_run(sig_pad, ref, *args), 5) if timed else None
+        print(f"K13 {name} ({sig_pad.shape[0]} x {ref.shape[1]} symbols, {n_ff}/"
+              f"{n_fb if use_fb else 0} taps): equal to plain {same} (max |diff| {err:.3e}), "
+              f"plain {plain_s * 1e3:.1f} ms" + (f", kernel {ms:.3f} ms" if timed else ""))
+        _check(same, f"K13 {name}: kernel disagrees with its plain version")
+        return out_k, ms, plain_s, err
+
+    # K13 at the serving shape: PAM4, 8 x 16,384 symbols, IMDDConfig's taps
+    pam = dfe.norm_const(4, "pam")
+    x, s = _pam_isi(8, n_pam, 70)
+    sig_pad, ref, _ = prepared(x, s, 15, pam)
+    out, ms, plain_s, err = compare("DFE PAM4 real", sig_pad, ref, pam, 15, 5, True, 8000, True,
+                                    timed=True)
+    dfe_entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3)
+    dfe_cost = _dfe_cost(8, n_pam, 15, 5, 1, False)
+    compare("FFE PAM4 real", sig_pad, ref, pam, 15, 1, False, 8000, True, timed=True)
+    # batch against single, per signal
+    one = dfe.dfe_run(sig_pad[5:6].contiguous(), ref[5:6].contiguous(), pam,
+                      torch.tensor([[0.0] * 7 + [1.0] + [0.0] * 7], device=dev),
+                      torch.zeros((1, 5), device=dev), n_pam, 1, 2e-3, 8000, True, True)
+    same_b = all(bool(torch.equal(a[5:6], b)) for a, b in zip(out, one))
+    print(f"K13 batch of 8 against signal 5 alone: equal {same_b}")
+    _check(same_b, "K13: a signal's result depends on its batch")
+    # square 16-QAM (per-axis quantizer) and 8-PSK (argmin), complex instance
+    qam = dfe.norm_const(16, "qam")
+    xq, sq = _cplx_isi(8, n_cplx, qam, 80)
+    sp_q, ref_q, _ = prepared(xq, sq, 7, qam)
+    compare("DFE 16-QAM fulltime", sp_q, ref_q, qam, 7, 3, True, 1500, True)
+    psk = np.exp(2j * np.pi * np.arange(8) / 8).astype(np.complex64)
+    xp, spk = _cplx_isi(8, n_cplx, psk, 90)
+    sp_p, ref_p, _ = prepared(xp, spk, 7, psk)
+    compare("DFE 8-PSK argmin", sp_p, ref_p, psk, 7, 3, True, 1500, False)
+    # the PAM4 signal on the complex instance: its real parts exactly
+    out_c = dfe.dfe_run(sig_pad.to(torch.complex64), ref.to(torch.complex64), pam,
+                        torch.tensor([[0.0] * 7 + [1.0] + [0.0] * 7] * 8, device=dev,
+                                     dtype=torch.complex64),
+                        torch.zeros((8, 5), device=dev, dtype=torch.complex64), n_pam, 1, 2e-3,
+                        8000, True, True)
+    same_c = all(bool(torch.equal(a, b.real if b.is_complex() else b))
+                 for a, b in zip(out, out_c))
+    print(f"K13 PAM4 on the complex instance: real parts equal to the real instance {same_c}")
+    _check(same_c, "K13: the complex instance disagrees with the real one at PAM")
+    report["dfe"] = _with_bound(dfe_entry, *dfe_cost)
+
+    # K14 at bench_dsp.py:350-367's shape: B = 8 x 16,384 symbols, SpS 2,
+    # 13 / 7 / 5 taps, mu 1e-3, nTrain 4000
+    xv, sv = _nl_pam(8, n_vol)
+    ref_n = torch.stack([pnorm(r) for r in torch.as_tensor(sv, device=dev)])
+    for order in (2, 3):
+        cfg = VolterraConfig(n1Taps=13, n2Taps=7, n3Taps=5, SpS=2, mu=1e-3, nTrain=4000,
+                             order=order, M=4, constType="pam")
+        sig_pad_v, ref_v, h0, n_out, _ = volterra.prepare(torch.as_tensor(xv, device=dev),
+                                                          torch.as_tensor(sv, device=dev), cfg)
+        args = (h0, n_out, 2, 13, 7, 5, order, volterra._levels(4, "pam"), 1e-3, 4000, False)
+        out_k = volterra.volterra_run(sig_pad_v, ref_v, *args)
+        out_p, plain_s = _wall(lambda: volterra.volterra_pass_plain(sig_pad_v, ref_v, *args))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(out_k, out_p))
+        err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
+        ms = _cuda_ms(lambda: volterra.volterra_run(sig_pad_v, ref_v, *args), 5)
+        y_n = torch.stack([pnorm(r) for r in out_k[0]])
+        bers = [float(fast_ber_calc(y_n[b, 4000:], ref_n[b, 4000:], 4, "pam")[0][0])
+                for b in range(8)]
+        print(f"K14 volterra order {order} (8 x {n_out} symbols, {h0.shape[1]} taps): equal to "
+              f"plain {same} (max |diff| {err:.3e}), kernel {ms:.3f} ms, plain "
+              f"{plain_s * 1e3:.1f} ms; BER after nTrain {bers}")
+        _check(same, f"K14 order {order}: kernel disagrees with its plain version")
+        _check(max(bers) == 0.0, f"K14 order {order}: BER after nTrain {bers}, expected 0")
+        if order == 3:
+            report["volterra"] = _with_bound(dict(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3),
+                                             *_volterra_cost(8, n_out, h0.shape[1], 13, 2))
+    return report
+
+
+def imdd_links(dev, n_links=8, n_bits=2**17, seed=5):
+    """Path H's links built on the card by the port: pam_transmitter's draw
+    and build (links as columns) -> linear_fiber_channel -> photodiode per
+    link. Returns (currents (B, N) float32, symbols (B, nSym) float32)."""
+    from opticommpy_torch.models import LinearFiberConfig, PhotodiodeConfig
+    from opticommpy_torch.models.channels import linear_fiber_channel
+    from opticommpy_torch.models.devices import photodiode
+    from opticommpy_torch.models.tx import PAMTxConfig, pam_tx_build, pam_tx_draw
+
+    # one column per link: pam_tx_build gives each column its own peak and power
+    cfg_tx = PAMTxConfig(M=4, Rs=25e9, SpS=8, nBits=n_bits, pulseType="nrz", power=3.0,
+                         nPolModes=n_links)
+    fs = cfg_tx.Fs
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    symb = pam_tx_draw(gen, cfg_tx)  # (nSym, B)
+    rx = linear_fiber_channel(pam_tx_build(symb, cfg_tx),
+                              LinearFiberConfig(L=10, alpha=0.2, D=17, Fs=fs))
+    pd = PhotodiodeConfig(Fs=fs, B=20e9)
+    i_b = torch.stack([photodiode(rx[:, b], pd, gen) for b in range(n_links)])
+    return i_b.to(torch.float32).contiguous(), symb.T.contiguous()
+
+
+def _imdd_scores(y, mse, ref, n_train):
+    """Per link (BER after 2 n_train, MSE of the last 4,000 symbols)."""
+    from opticommpy_torch.comm.metrics import fast_ber_calc
+    from opticommpy_torch.ops.signal import pnorm
+
+    post = 2 * n_train
+    rows = []
+    for b in range(y.shape[0]):
+        ber = fast_ber_calc(y[b, post:].real, pnorm(ref[b])[post:], 4, "pam")[0]
+        rows.append((float(ber[0]), float(mse[b, -4000:].mean())))
+    return rows
+
+
+def _pam_decisions(y):
+    """Nearest normalized PAM4 level of each real symbol."""
+    lev = torch.tensor([-3.0, -1.0, 1.0, 3.0], device=y.device) / np.sqrt(5.0)
+    return torch.argmin((y.real[..., None] - lev).abs(), dim=-1)
+
+
+def run_imdd_path_h(dev, n_links=8, n_bits=2**17, n_cmp=16384, n_wide=132):
+    """Path H: IM-DD serving at the JAX package's bench size
+    (bench.run_imdd_chain): 8 links through imdd_dsp_chain_batch with the
+    DFE (K13 1 launch) and the FFE (K13 1 launch), then the same links'
+    SpS-2 samples through volterra_kernel (K14 1 launch)."""
+    from opticommpy_torch.dsp.equalization import VolterraConfig
+    from opticommpy_torch.kernels import dfe, volterra
+    from opticommpy_torch.ops.signal import row_mean
+    from opticommpy_torch.pipelines import IMDDConfig, imdd_dsp_chain_batch
+
+    (i_b, ref_b), build_s = _wall(lambda: imdd_links(dev, n_links, n_bits))
+    n_sym = ref_b.shape[1]
+    print(f"path H: {n_links} links x {i_b.shape[1]} samples ({n_sym} PAM4 symbols) built on "
+          f"the card in {build_s:.3f} s")
+    out = {}
+    failures = []
+    for eq in ("dfe", "ffe"):
+        cfg = IMDDConfig(SpS_in=8, nTapsFF=15, nTapsFB=5, mu=2e-3, nTrain=8000, eq=eq)
+        _reset_counts()
+        (y, mse), first_s = _wall(lambda: imdd_dsp_chain_batch(i_b, ref_b, cfg))
+        counts = _counts()
+        _check(counts == _expect(dfe=1), f"path H {eq}: launches {counts}, expected K13 1")
+        _check(tuple(y.shape) == (n_links, n_sym) and y.is_cuda
+               and bool(torch.isfinite(y).all()) and bool(torch.isfinite(mse).all()),
+               f"path H {eq}: output {tuple(y.shape)} not finite or misplaced")
+        rows = _imdd_scores(y, mse, ref_b, cfg.nTrain)
+        ms = _cuda_ms(lambda: imdd_dsp_chain_batch(i_b, ref_b, cfg), 3)
+        print(f"path H {eq}: launches K13 {counts['dfe']}; first call {first_s * 1e3:.1f} ms, "
+              f"warm {ms:.3f} ms = {n_links * n_sym / ms / 1e3:.4f} Msym/s aggregate "
+              f"(B = {n_links})")
+        print(f"path H {eq} per link (BER after 2 nTrain, tail MSE): {rows}")
+        for b, (ber, tail) in enumerate(rows):
+            if not (ber < 1e-3 and tail < 0.05):
+                failures.append(f"path H {eq} link {b}: BER {ber}, tail MSE {tail}")
+        med = float(np.median([r[0] for r in rows]))
+        med_jax = float(np.median([r[0] for r in JAX_IMDD[eq]]))
+        print(f"path H {eq}: median BER {med:.3e}, JAX {med_jax:.3e}")
+        if med > 2 * med_jax + 1e-4:
+            failures.append(f"path H {eq}: median BER {med} above 2 x JAX {med_jax} + 1e-4")
+        # the chain on CPU tensors (the plain version) on every link's first
+        # n_cmp symbols, against the same chain on the card
+        i_c, r_c = i_b[:, :8 * n_cmp], ref_b[:, :n_cmp]
+        y_g, _ = imdd_dsp_chain_batch(i_c, r_c, cfg)
+        y_c, cpu_s = _wall(lambda: imdd_dsp_chain_batch(i_c.cpu(), r_c.cpu(), cfg)[0])
+        flips = int((_pam_decisions(y_g.cpu()) != _pam_decisions(y_c)).sum())
+        d = float((y_g.cpu() - y_c).abs().max())
+        print(f"path H {eq} on {n_links} x {n_cmp} symbols, CUDA against the CPU plain chain "
+              f"({cpu_s:.1f} s): differing decisions {flips}, max |y diff| {d:.3e}, "
+              f"bit for bit {bool(torch.equal(y_g.cpu(), y_c))}")
+        _check(flips == 0 and d < IMDD_Y_ATOL,
+               f"path H {eq}: the CPU chain decides otherwise ({flips}, {d})")
+        out[eq] = dict(counts=counts, ms=ms, rows=rows)
+    # the serving batch at one link per SM: time only
+    wide = i_b.repeat(-(-n_wide // n_links), 1)[:n_wide].contiguous()
+    wide_ref = ref_b.repeat(-(-n_wide // n_links), 1)[:n_wide].contiguous()
+    cfg = IMDDConfig(SpS_in=8, nTapsFF=15, nTapsFB=5, mu=2e-3, nTrain=8000)
+    ms_w = _cuda_ms(lambda: imdd_dsp_chain_batch(wide, wide_ref, cfg), 2)
+    print(f"path H dfe at B = {n_wide} (links repeated; time only): warm {ms_w:.3f} ms = "
+          f"{n_wide * n_sym / ms_w / 1e3:.4f} Msym/s aggregate")
+    out["wide_ms"] = ms_w
+    del wide, wide_ref
+
+    # Volterra on the same links at SpS 2 (K14)
+    x2 = (i_b - row_mean(i_b)[:, None])[:, ::4].contiguous()
+    vcfg = VolterraConfig(n1Taps=13, n2Taps=7, n3Taps=5, SpS=2, mu=1e-3, nTrain=4000, order=3,
+                          M=4, constType="pam")
+    _reset_counts()
+    (yv, _, msev), vol_s = _wall(lambda: volterra.volterra_kernel(x2, ref_b, vcfg))
+    vol_counts = _counts()
+    _check(vol_counts == _expect(volterra=1),
+           f"path H volterra: launches {vol_counts}, expected K14 1")
+    _check(bool(torch.isfinite(yv).all()), "path H volterra: non-finite output")
+    vrows = _imdd_scores(yv, msev, ref_b, vcfg.nTrain)
+    print(f"path H volterra (order 3, 13/7/5, SpS 2): launches K14 {vol_counts['volterra']}, "
+          f"{vol_s * 1e3:.1f} ms; per link (BER after 2 nTrain, tail MSE): {vrows}")
+    sig_pad, ref_v, h0, _, _ = volterra.prepare(x2, ref_b, vcfg)
+    args = (2, 13, 7, 5, 3, volterra._levels(4, "pam"), 1e-3, 4000, False)
+    n_pre = 4096
+    pre_k = volterra.volterra_run(sig_pad, ref_v[:, :n_pre].contiguous(), h0, n_pre, *args)
+    pre_c = volterra.volterra_pass_plain(sig_pad.cpu(), ref_v[:, :n_pre].cpu(), h0.cpu(), n_pre,
+                                         *args)
+    verr = max(float((a.cpu() - b).abs().max()) for a, b in zip(pre_k, pre_c))
+    vsame = all(bool(torch.equal(a.cpu(), b)) for a, b in zip(pre_k, pre_c))
+    print(f"path H volterra on {n_links} x {n_pre} symbols, kernel against the CPU plain "
+          f"version: equal {vsame}, max |diff| {verr:.3e}")
+    _check(verr < VOL_PREFIX_ATOL, f"path H volterra: CPU plain version differs by {verr}")
+    out.update(vol_counts=vol_counts, vol_rows=vrows, failures=failures)
+    return out
+
+
 def main():
     dev = phase_device()
     phase_build()
+    from opticommpy_torch.comm.modulation import norm_const
     from opticommpy_torch.kernels import bps, mimo_eq
-    from opticommpy_torch.pipelines import _norm_const
 
-    const = _norm_const(16)
+    const = norm_const(16, "qam")
     phase_s = {}
     t0 = time.perf_counter()
     report = phase_kernels_vs_plain(dev, const)
@@ -1974,10 +2314,16 @@ def main():
     t0 = time.perf_counter()
     path_g = run_lift_path_g(dev)
     phase_s["path G"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report.update(phase_imdd_kernels(dev))
+    phase_s["K13, K14 vs plain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_h = run_imdd_path_h(dev)
+    phase_s["path H"] = time.perf_counter() - t0
     for name, sec in phase_s.items():
         print(f"phase time: {name} {sec:.1f} s")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    failures = path_b["failures"] + path_c["failures"]
+    failures = path_b["failures"] + path_c["failures"] + path_h["failures"]
     _check(not failures, "bounds against the JAX package failed:\n  " + "\n  ".join(failures))
 
     kernels = [
@@ -2018,6 +2364,12 @@ def main():
         dict(name="lift_iter", route="cuda", source="opticommpy_torch/csrc/lift.cu",
              replaces="opticommpy_tpu/kernels/lift_pallas.py:182",
              launches=path_g["counts"]["lift_iter"], **report["lift_iter"]),
+        dict(name="dfe", route="cuda", source="opticommpy_torch/csrc/dfe.cu",
+             replaces="opticommpy_tpu/kernels/dfe_pallas.py:160",
+             launches=path_h["dfe"]["counts"]["dfe"], **report["dfe"]),
+        dict(name="volterra", route="cuda", source="opticommpy_torch/csrc/volterra.cu",
+             replaces="opticommpy_tpu/kernels/volterra_pallas.py:115",
+             launches=path_h["vol_counts"]["volterra"], **report["volterra"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 and FEC (port of ``opticommpy_tpu/comm``)."""
 
 from opticommpy_torch.comm import codes, fec, metrics, modulation, sources  # noqa: F401
+from opticommpy_torch.comm.metrics import bert, qfunc, theory_ber  # noqa: F401
 from opticommpy_torch.comm.modulation import (  # noqa: F401
     bit_map,
     demap,
@@ -11,3 +12,4 @@ from opticommpy_torch.comm.modulation import (  # noqa: F401
     min_euclid,
     modulate_gray,
 )
+from opticommpy_torch.comm.sources import bit_source, prbs_generator  # noqa: F401

@@ -1,13 +1,16 @@
-"""Performance metrics: BER/SER/SNR, LLRs, GMI, EVM.
+"""Performance metrics: BER/SER/SNR, OOK BER and Q, LLRs, GMI, EVM, and
+the AWGN theory curves.
 
-Port of ``opticommpy_tpu/comm/metrics.py`` (the part the coherent main path
-uses). All metrics are batched over modes and stay on the input's device.
+Port of ``opticommpy_tpu/comm/metrics.py`` (the part the coherent and IM-DD
+paths use). All Monte-Carlo metrics are batched over modes and stay on the
+input's device; :func:`theory_ber` is host NumPy/SciPy.
 """
 
 import math
 
 import numpy as np
 import torch
+from scipy.special import erf
 
 from opticommpy_torch.comm.modulation import (
     bit_map,
@@ -16,8 +19,45 @@ from opticommpy_torch.comm.modulation import (
     min_euclid,
 )
 from opticommpy_torch.ops.signal import pnorm
+from opticommpy_torch.utils.units import db2lin
 
-__all__ = ["fast_ber_calc", "calc_llr", "monte_carlo_gmi", "calc_evm"]
+__all__ = ["bert", "fast_ber_calc", "calc_llr", "monte_carlo_gmi", "calc_evm", "qfunc",
+           "theory_ber"]
+
+
+def qfunc(x):
+    """Gaussian tail function Q(x) = 0.5*erfc(x/sqrt(2)) (metrics.py:550),
+    as ``0.5 - 0.5*erf(x/sqrt(2))``; a tensor stays a tensor, anything else
+    is computed in NumPy."""
+    if isinstance(x, torch.Tensor):
+        return 0.5 - 0.5 * torch.special.erf(x / math.sqrt(2.0))
+    return 0.5 - 0.5 * erf(np.asarray(x) / np.sqrt(2.0))
+
+
+def bert(i_rx, bits_tx):
+    """OOK BER and Q factor from received intensities (metrics.py:37).
+
+    Per-level means and deviations, the optimal threshold
+    ``Id = (s1*I0 + s0*I1)/(s1+s0)``, ``Q = (I1 - I0)/(s1 + s0)``, and the
+    BER of the decisions ``i_rx > Id`` against ``bits_tx`` (required).
+    Returns (ber, q) as 0-dim tensors on the input's device.
+    """
+    i_rx = torch.as_tensor(i_rx).reshape(-1)
+    bits_tx = torch.as_tensor(bits_tx).to(i_rx.device).reshape(-1)
+    is1 = bits_tx == 1
+    zero = torch.zeros((), dtype=i_rx.dtype, device=i_rx.device)
+    n1 = torch.sum(is1)
+    n0 = bits_tx.shape[0] - n1
+    i1 = torch.sum(torch.where(is1, i_rx, zero)) / n1
+    i0 = torch.sum(torch.where(is1, zero, i_rx)) / n0
+    var1 = torch.sum(torch.where(is1, (i_rx - i1) ** 2, zero)) / n1
+    var0 = torch.sum(torch.where(is1, zero, (i_rx - i0) ** 2)) / n0
+    std1, std0 = torch.sqrt(var1), torch.sqrt(var0)
+    i_d = (std1 * i0 + std0 * i1) / (std1 + std0)
+    q = (i1 - i0) / (std1 + std0)
+    bits_rx = (i_rx > i_d).to(torch.int32)
+    ber = torch.mean(torch.abs(bits_rx - bits_tx.to(torch.int32)).to(torch.float32))
+    return ber, q
 
 
 def _as_columns(x):
@@ -135,3 +175,21 @@ def calc_evm(symb, M, const_type, symb_tx=None):
         decided = const[min_euclid(symb, const)]
     return (torch.mean(torch.abs(symb - decided) ** 2, dim=0)
             / torch.mean(torch.abs(decided) ** 2, dim=0))
+
+
+def theory_ber(M, ebn0_db, const_type):
+    """Approximate AWGN bit error probability for PAM/QAM/PSK
+    (metrics.py:640), in NumPy float64."""
+    ebn0 = db2lin(np.asarray(ebn0_db, np.float64))
+    k = np.log2(M)
+    if const_type == "qam":
+        L = np.sqrt(M)
+        return (2 * (1 - 1 / L) / np.log2(L)
+                * qfunc(np.sqrt(3 * np.log2(L) / (L**2 - 1) * (2 * ebn0))))
+    elif const_type == "psk":
+        ps = 2 * qfunc(np.sqrt(2 * k * ebn0) * np.sin(np.pi / M))
+        return ps / k
+    elif const_type == "pam":
+        ps = (2 * (M - 1) / M) * qfunc(np.sqrt(6 * np.log2(M) / (M**2 - 1) * ebn0))
+        return ps / k
+    raise ValueError("const_type must be 'qam', 'psk' or 'pam'")

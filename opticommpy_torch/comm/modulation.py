@@ -10,6 +10,7 @@ import torch
 __all__ = [
     "gray_code",
     "gray_mapping",
+    "norm_const",
     "pam_const",
     "qam_const",
     "psk_const",
@@ -105,6 +106,12 @@ def gray_mapping(M, const_type):
     # position symbols so that const_out[gray_label] = const[natural_index]
     order = np.argsort(code)
     return const[order]
+
+
+def norm_const(M, const_type):
+    """Gray-mapped constellation at unit average energy, complex64."""
+    c = gray_mapping(M, const_type)
+    return (c / np.sqrt(np.mean(np.abs(c) ** 2))).astype(np.complex64)
 
 
 def bit_map(M, const_type):

@@ -1,7 +1,10 @@
-"""Symbol sources (port of ``opticommpy_tpu/comm/sources.py``).
+"""Bit and symbol sources (port of ``opticommpy_tpu/comm/sources.py``).
 
 The constellation and its probability mass function are the same host
-NumPy code; symbol indices are drawn from an explicit ``torch.Generator``.
+NumPy code; symbol indices and random bits are drawn from an explicit
+``torch.Generator``. The PRBS register recurrence is computed on the host
+in a few NumPy steps (see :func:`prbs_generator`) and equals the JAX
+package's scan bit for bit.
 """
 
 import numpy as np
@@ -13,8 +16,92 @@ from opticommpy_torch.comm.modulation import (
     psk_const,
     qam_const,
 )
+from opticommpy_torch.utils.rng import default_device, ensure_generator
 
-__all__ = ["constellation", "draw_symbol_indices", "symbol_pmf"]
+__all__ = ["bit_source", "prbs_generator", "constellation", "draw_symbol_indices",
+           "symbol_pmf"]
+
+# LFSR taps per PRBS order (x^a + x^b + 1), as in the reference sources.py:104-113
+_PRBS_TAPS = {
+    7: (6, 5),
+    9: (8, 4),
+    11: (10, 8),
+    13: (12, 11),
+    15: (14, 13),
+    23: (22, 17),
+    31: (30, 27),
+}
+
+
+def _prbs_bits(order, length, seed):
+    """The register's output bits as a NumPy uint8 array.
+
+    Output bit n is bit ``order - 1`` of the register after n shifts, so the
+    output sequence u starts with the seed's bits from the top down and then
+    obeys u[m] = u[m - 1 - a] ^ u[m - 1 - b]. Squaring the recurrence's
+    polynomial over GF(2) gives u[m] = u[m - 2^k (1 + a)] ^ u[m - 2^k (1 + b)]
+    for every k, so the sequence is filled in chunks that double in size.
+    """
+    tap_a, tap_b = _PRBS_TAPS[order]
+    lag_a, lag_b = 1 + tap_a, 1 + tap_b
+    u = np.zeros(max(length, order), np.uint8)
+    u[:order] = (seed >> np.arange(order - 1, -1, -1)) & 1
+    n = order
+    while n < length:
+        k = 1
+        while 2 * k * lag_a <= n:
+            k *= 2
+        end = min(length, n + k * lag_b)
+        m = np.arange(n, end)
+        u[n:end] = u[m - k * lag_a] ^ u[m - k * lag_b]
+        n = end
+    return u[:length]
+
+
+def prbs_generator(order=23, length=None, seed=1, device=None):
+    """Pseudo-random binary sequence from an LFSR of the given order.
+
+    Supported orders: 7, 9, 11, 13, 15, 23, 31 (sources.py:75). Returns int32
+    bits on ``device`` (the CUDA device when none is named), equal to the
+    JAX package's ``lax.scan`` register bit for bit.
+    """
+    if seed is None:
+        seed = 1
+    if seed <= 0:
+        raise ValueError("Seed must be a positive integer.")
+    if order not in _PRBS_TAPS:
+        raise ValueError(
+            f"PRBS order {order} is not supported. "
+            f"Supported orders: {sorted(_PRBS_TAPS)}."
+        )
+    period = 2**order - 1
+    if length is None or length > period:
+        length = period
+    bits = _prbs_bits(order, int(length), int(seed) & period)
+    return torch.as_tensor(bits.astype(np.int32), device=default_device(device))
+
+
+def bit_source(generator_or_seed, n_bits=1000, mode="random", order=23, device=None):
+    """Random or PRBS bit sequence of length ``n_bits`` (sources.py:23), int32.
+
+    ``'random'`` draws from a ``torch.Generator`` (its device is the bits'),
+    or from a new generator seeded with an integer on ``device`` (the CUDA
+    device when none is named). ``'prbs'`` is deterministic: an integer seed
+    > 0 sets the register, anything else starts it at 1 (an all-zero
+    register is a fixed point), as in the JAX package.
+    """
+    if mode == "random":
+        gen = ensure_generator(generator_or_seed, device)
+        return torch.randint(0, 2, (n_bits,), generator=gen, device=gen.device,
+                             dtype=torch.int32)
+    elif mode == "prbs":
+        seed = (generator_or_seed if isinstance(generator_or_seed, int)
+                and generator_or_seed > 0 else 1)
+        prbs = prbs_generator(order, min(n_bits, 2**order - 1), seed, device)
+        if prbs.shape[0] < n_bits:
+            prbs = prbs.repeat(n_bits // prbs.shape[0] + 1)
+        return prbs[:n_bits]
+    raise ValueError("mode must be 'random' or 'prbs'")
 
 
 def constellation(M, const_type):

@@ -30,15 +30,17 @@ def port_config_classes():
     from opticommpy_torch.dsp.carrier_recovery import CPRConfig
     from opticommpy_torch.dsp.clock_recovery import (ClockRecoveryConfig,
                                                      FFWClockRecoveryConfig)
-    from opticommpy_torch.dsp.equalization import EDCConfig, MIMOEqualizerConfig
+    from opticommpy_torch.dsp.equalization import (DFEConfig, EDCConfig, FFEConfig,
+                                                   MIMOEqualizerConfig, VolterraConfig)
     from opticommpy_torch.models import config as model_config
-    from opticommpy_torch.models.tx import WDMTxConfig
-    from opticommpy_torch.pipelines import CoherentDSPConfig
+    from opticommpy_torch.models.tx import PAMTxConfig, WDMTxConfig
+    from opticommpy_torch.pipelines import CoherentDSPConfig, IMDDConfig
 
     classes = [obj for obj in vars(model_config).values()
                if dataclasses.is_dataclass(obj) and isinstance(obj, type)]
     classes += [WDMTxConfig, EDCConfig, MIMOEqualizerConfig, CPRConfig,
-                CoherentDSPConfig, ClockRecoveryConfig, FFWClockRecoveryConfig, LDPCConfig]
+                CoherentDSPConfig, ClockRecoveryConfig, FFWClockRecoveryConfig, LDPCConfig,
+                DFEConfig, FFEConfig, VolterraConfig, PAMTxConfig, IMDDConfig]
     return {cls.__name__: cls for cls in classes}
 
 

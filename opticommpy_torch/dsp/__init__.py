@@ -19,12 +19,18 @@ from opticommpy_torch.dsp.clock_recovery import (  # noqa: F401
     gardner_clock_recovery,
 )
 from opticommpy_torch.dsp.equalization import (  # noqa: F401
+    DFEConfig,
     EDCConfig,
+    FFEConfig,
     MIMOEqualizer,
     MIMOEqualizerConfig,
+    VolterraConfig,
+    dfe,
     edc,
+    ffe,
     mimo_adapt_equalizer,
     mimo_adapt_equalizer_batch,
     mimo_apply,
     mimo_apply_fused,
+    volterra,
 )

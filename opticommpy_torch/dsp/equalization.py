@@ -1,4 +1,5 @@
-"""Static and adaptive equalization: EDC and the N x N MIMO adaptive equalizer.
+"""Static and adaptive equalization: EDC, the N x N MIMO adaptive equalizer
+and the SISO DFE / FFE / Volterra equalizers.
 
 Port of ``opticommpy_tpu/dsp/equalization.py``, part A:
 
@@ -22,11 +23,21 @@ Port of ``opticommpy_tpu/dsp/equalization.py``, part A:
   which folds a matched filter, CD compensation and the power
   normalization into the same filter.
 
+Part B (``equalization.py:1165-1395``): :func:`ffe`, :func:`dfe` and
+:func:`volterra`, the decision-directed LMS equalizers of the IM-DD
+receiver, as per-symbol loops with the JAX scans' rules (an argmin slicer;
+``conj(win)`` in the gradient only for a complex constellation). They run
+the kernels' plain versions (:mod:`opticommpy_torch.kernels.dfe`,
+:mod:`opticommpy_torch.kernels.volterra`) on any device and never launch
+a kernel, as the JAX functions run their scans; the kernels' entries are
+``dfe_kernel``, ``ffe_kernel`` and ``volterra_kernel``.
+
 Not ported yet (they raise ``NotImplementedError``): ``runWL``,
 ``blockUpdate > 1`` and, in the single-signal trainer, ``storeCoeff``
 (ROADMAP.md queue 1, item 8).
 """
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,14 +45,17 @@ import torch
 
 from opticommpy_torch.comm.modulation import gray_mapping
 from opticommpy_torch.comm.sources import symbol_pmf
+from opticommpy_torch.kernels import dfe as dfe_k
 from opticommpy_torch.kernels import mimo_eq, rls
+from opticommpy_torch.kernels import volterra as volterra_k
 from opticommpy_torch.kernels.bps import _square_qam_levels
 from opticommpy_torch.models.channels import fiber_coefficients
 from opticommpy_torch.ops.filtering import overlap_save
-from opticommpy_torch.utils.rng import default_device
+from opticommpy_torch.utils.rng import as_device_tensor, default_device
 
 __all__ = ["edc", "EDCConfig", "mimo_adapt_equalizer", "mimo_adapt_equalizer_batch",
-           "MIMOEqualizerConfig", "MIMOEqualizer", "mimo_apply", "mimo_apply_fused"]
+           "MIMOEqualizerConfig", "MIMOEqualizer", "mimo_apply", "mimo_apply_fused",
+           "DFEConfig", "FFEConfig", "VolterraConfig", "dfe", "ffe", "volterra"]
 
 
 @dataclass(frozen=True)
@@ -579,3 +593,99 @@ class MIMOEqualizer(torch.nn.Module):
                                                H=self.H, Sd=self.Sd)
         self.H, self.Sd = H, Sd
         return y
+
+
+# ---------------------------------------------------------------------------
+# SISO decision-feedback equalizers (DFE / FFE / Volterra)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DFEConfig:
+    """Decision-feedback equalizer parameters (equalization.py:1176)."""
+
+    nTapsFF: int = 5
+    nTapsFB: int = 5
+    SpS: int = 1
+    mu: float = 1e-4
+    nTrain: int = 1000
+    M: int = 4
+    constType: str = "pam"
+    trainingMode: str = "data-aided"  # or 'fulltime'
+    preconvIters: int = 1
+
+
+@dataclass(frozen=True)
+class FFEConfig:
+    """Feedforward equalizer parameters (equalization.py:1545)."""
+
+    nTaps: int = 5
+    mu: float = 1e-4
+    SpS: int = 1
+    nTrain: int = 1000
+    M: int = 4
+    constType: str = "pam"
+    trainingMode: str = "data-aided"
+    preconvIters: int = 1
+
+
+@dataclass(frozen=True)
+class VolterraConfig:
+    """Volterra equalizer parameters (equalization.py:1868)."""
+
+    n1Taps: int = 5
+    n2Taps: int = 3
+    n3Taps: int = 2
+    SpS: int = 1
+    mu: float = 1e-3
+    nTrain: int = 1000
+    order: int = 2
+    M: int = 4
+    constType: str = "pam"
+    trainingMode: str = "data-aided"
+    preconvIters: int = 1
+
+
+def _lms_scan(sig, symb_ref, cfg, n_ff, n_fb, use_fb):
+    """The JAX ``_dfe_core`` / ``_ffe_core`` scans as a per-symbol loop on
+    one signal: argmin slicer, ``conj(win)`` only for a complex
+    constellation."""
+    const = dfe_k.norm_const(cfg.M, cfg.constType)
+    sig = as_device_tensor(sig).reshape(-1)
+    symb_ref = torch.as_tensor(symb_ref).to(sig.device).reshape(-1)
+    sig_pad, ref, n_out, _ = dfe_k.prepare(sig, symb_ref, n_ff, cfg.SpS, const)
+    run = functools.partial(dfe_k.dfe_pass_plain, grid=False, conj=cfg.constType != "pam")
+    y, mse, f, b = dfe_k.run_passes(sig_pad, ref, const, n_ff, n_fb, n_out, cfg, use_fb, run)
+    y = y[0].real if cfg.constType == "pam" and y.is_complex() else y[0]
+    if cfg.constType != "pam":
+        y = y.to(torch.complex64)
+    return y, f[0].to(torch.complex64), b[0].to(torch.complex64), mse[0]
+
+
+def ffe(sig, symb_ref, config: FFEConfig = FFEConfig()):
+    """Decision-directed feedforward LMS equalizer (equalization.py:1545).
+
+    Returns (sigOut, f, mse): ``sigOut`` real at PAM, ``f`` complex64.
+    """
+    y, f, _, mse = _lms_scan(sig, symb_ref, config, config.nTaps, 1, False)
+    return y, f, mse
+
+
+def dfe(sig, symb_ref, config: DFEConfig = DFEConfig()):
+    """Decision-feedback LMS equalizer (equalization.py:1176).
+
+    Returns (sigOut, f, b, mse): ``sigOut`` real at PAM, taps complex64.
+    """
+    return _lms_scan(sig, symb_ref, config, config.nTapsFF, config.nTapsFB, True)
+
+
+def volterra(sig, symb_ref, config: VolterraConfig = VolterraConfig()):
+    """Decision-directed Volterra equalizer to 3rd order (equalization.py:1868).
+
+    ``anorm(pnorm(.))`` of the real input, the argmin slicer over the PAM
+    levels, updates with mu, mu/2 and mu/7, ``pnorm`` on the output.
+    Returns (sigOut, [h1, h2 (n2, n2), h3 (n3, n3, n3)], mse).
+    """
+    return volterra_k.equalize(as_device_tensor(sig).reshape(-1),
+                               torch.as_tensor(symb_ref).reshape(-1), config,
+                               functools.partial(volterra_k.volterra_pass_plain, grid=False))

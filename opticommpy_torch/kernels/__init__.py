@@ -19,6 +19,10 @@
   layered (replaces ``kernels/qc_mega.py``).
 - :mod:`lift` — one flooding iteration of the 802.11n / AR4JA
   lifted-circulant decoder (replaces ``kernels/lift_pallas.py``).
+- :mod:`dfe` — the DFE / FFE LMS recurrence over a batch of signals, with
+  the real instance for PAM (replaces ``kernels/dfe_pallas.py``).
+- :mod:`volterra` — the 2nd/3rd-order Volterra LMS recurrence, one warp
+  per signal (replaces ``kernels/volterra_pallas.py``).
 
 A wrapper runs the plain version for a CPU tensor, and the kernel, or
 raises, for a CUDA tensor. The kernels are built with nvcc on first use

@@ -2,7 +2,7 @@
 ``opticommpy_tpu/models``)."""
 
 from opticommpy_torch.models import channels, config, devices, tx  # noqa: F401
-from opticommpy_torch.models.channels import manakov_ssf  # noqa: F401
+from opticommpy_torch.models.channels import linear_fiber_channel, manakov_ssf  # noqa: F401
 from opticommpy_torch.models.config import (  # noqa: F401
     ADCConfig,
     AWGNConfig,
@@ -29,4 +29,9 @@ from opticommpy_torch.models.devices import (  # noqa: F401
     pdm_coherent_receiver,
     photodiode,
 )
-from opticommpy_torch.models.tx import WDMTxConfig, simple_wdm_tx  # noqa: F401
+from opticommpy_torch.models.tx import (  # noqa: F401
+    PAMTxConfig,
+    WDMTxConfig,
+    pam_transmitter,
+    simple_wdm_tx,
+)

@@ -1,6 +1,8 @@
-"""Fiber channel: Manakov split-step Fourier propagation.
+"""Fiber channels: the linear fiber and Manakov split-step Fourier
+propagation.
 
-Port of ``opticommpy_tpu/models/channels.py`` (:func:`manakov_ssf`). Both
+Port of ``opticommpy_tpu/models/channels.py`` (:func:`linear_fiber_channel`,
+:func:`manakov_ssf`). Both
 polarizations and every signal of a batch are stacked in one (2, B, N)
 field, so each FFT is one batched ``torch.fft`` call over the time axis
 (cuFFT on the card). The fixed-step path (``nlprMethod=False``) knows its
@@ -18,13 +20,13 @@ import numpy as np
 import scipy.constants as sconst
 import torch
 
-from opticommpy_torch.models.config import EDFAConfig, SSFMConfig
+from opticommpy_torch.models.config import EDFAConfig, LinearFiberConfig, SSFMConfig
 from opticommpy_torch.models.devices import edfa
 from opticommpy_torch.ops.signal import fftfreq
 from opticommpy_torch.utils.rng import ensure_generator
 
-__all__ = ["manakov_ssf", "nlin_phase_rot", "convergence_condition",
-           "fiber_coefficients"]
+__all__ = ["linear_fiber_channel", "manakov_ssf", "nlin_phase_rot",
+           "convergence_condition", "fiber_coefficients"]
 
 
 def fiber_coefficients(alpha_db_km, D_ps_nm_km, fc_hz):
@@ -34,6 +36,31 @@ def fiber_coefficients(alpha_db_km, D_ps_nm_km, fc_hz):
     alpha = alpha_db_km / (10 * np.log10(np.e))
     beta2 = -(D_ps_nm_km * lam**2) / (2 * np.pi * c_kms)
     return alpha, beta2
+
+
+def linear_fiber_channel(e_in, config: LinearFiberConfig):
+    """Linear fiber: one-shot frequency-domain loss and chromatic dispersion,
+    ``H(w) = exp(-a/2*L + j*b2/2*w^2*L)`` (reference channels.py:30), on
+    every column of (N,) or (N, modes) ``e_in``.
+
+    The angular-frequency grid and the dispersion phase are float32 as in
+    the JAX package (``w = 2*pi*Fs*fftfreq(n)``, then ``(b2/2)*w**2*L``, each
+    product rounded to float32), and the phase reaches tens of radians, so
+    the port keeps that arithmetic rather than computing it in float64.
+    """
+    if config.Fs is None:
+        raise ValueError("Simulation sampling frequency (Fs) not provided.")
+    e_in = torch.as_tensor(e_in)
+    squeeze = e_in.ndim == 1
+    if squeeze:
+        e_in = e_in[:, None]
+    alpha, beta2 = fiber_coefficients(config.alpha, config.D, config.Fc)
+    n = e_in.shape[0]
+    w = (2 * np.pi * config.Fs) * fftfreq(n, 1.0, torch.float32, e_in.device)
+    phase = ((beta2 / 2) * (w * w)) * config.L
+    H = torch.exp(torch.complex(torch.full_like(w, (-alpha / 2) * config.L), phase))
+    out = torch.fft.ifft(torch.fft.fft(e_in.to(torch.complex64), dim=0) * H[:, None], dim=0)
+    return out[:, 0] if squeeze else out
 
 
 def _solver_cdtype(cfg):

@@ -1,10 +1,11 @@
-"""Optical transmitters: the WDM pol-mux coherent Tx.
+"""Optical transmitters: the WDM pol-mux coherent Tx and the PAM IM-DD Tx.
 
-Port of ``opticommpy_tpu/models/tx.py`` (:func:`simple_wdm_tx`). The whole
-(nChannels, nPolModes) grid of signals is shaped, modulated, shifted onto
-the WDM grid and summed as batched tensor ops. The Tx is split into its
-random draws (:func:`wdm_tx_draw`) and a deterministic build
-(:func:`wdm_tx_build`), so that a test can feed the JAX package's symbols
+Port of ``opticommpy_tpu/models/tx.py`` (:func:`simple_wdm_tx`,
+:func:`pam_transmitter`). The whole (nChannels, nPolModes) grid of signals
+is shaped, modulated, shifted onto the WDM grid and summed as batched
+tensor ops. Each Tx is split into its random draws (:func:`wdm_tx_draw`,
+:func:`pam_tx_draw`) and a deterministic build (:func:`wdm_tx_build`,
+:func:`pam_tx_build`), so that a test can feed the JAX package's symbols
 through the port.
 """
 
@@ -16,15 +17,16 @@ import torch
 
 from opticommpy_torch.comm.modulation import gray_mapping
 from opticommpy_torch.comm.sources import draw_symbol_indices, symbol_pmf
-from opticommpy_torch.models.config import IQMConfig
-from opticommpy_torch.models.devices import iqm
+from opticommpy_torch.models.config import IQMConfig, MZMConfig
+from opticommpy_torch.models.devices import iqm, mzm
 from opticommpy_torch.ops.filtering import fir_filter, pulse_shape
 from opticommpy_torch.ops.noise import phase_noise
 from opticommpy_torch.ops.signal import upsample
 from opticommpy_torch.utils.rng import ensure_generator
+from opticommpy_torch.utils.units import dbm2w
 
-__all__ = ["WDMTxConfig", "simple_wdm_tx", "wdm_freq_grid", "wdm_tx_draw",
-           "wdm_tx_build"]
+__all__ = ["WDMTxConfig", "PAMTxConfig", "simple_wdm_tx", "wdm_freq_grid", "wdm_tx_draw",
+           "wdm_tx_build", "pam_transmitter", "pam_tx_draw", "pam_tx_build"]
 
 
 @dataclass(frozen=True)
@@ -48,6 +50,35 @@ class WDMTxConfig:
     laserLinewidth: float = 0.0
     wdmGridSpacing: float = 50e9
     nPolModes: int = 1
+
+    @property
+    def Fs(self):
+        return self.Rs * self.SpS
+
+    @property
+    def nSymbols(self):
+        return int(self.nBits / np.log2(self.M))
+
+
+@dataclass(frozen=True)
+class PAMTxConfig:
+    """PAM transmitter parameters (reference tx.py:231 defaults)."""
+
+    M: int = 4
+    Rs: float = 32e9
+    SpS: int = 16
+    probDist: str = "uniform"
+    shapingFactor: float = 0.0
+    nBits: int = 40000
+    pulseType: str = "nrz"
+    nFilterTaps: int = 256
+    pulseRollOff: float = 0.01
+    mzmVpi: float = 3.0
+    mzmVb: float = 1.5
+    mzmER: float = 80.0
+    mzmScale: float = 0.25
+    nPolModes: int = 1
+    power: float = -3.0  # dBm
 
     @property
     def Fs(self):
@@ -150,3 +181,51 @@ def simple_wdm_tx(generator_or_seed, config: WDMTxConfig = WDMTxConfig(),
     gen = ensure_generator(generator_or_seed, device)
     symbols, pn = wdm_tx_draw(gen, config)
     return wdm_tx_build(symbols, pn, config)
+
+
+def _pam_constellation(cfg):
+    const = gray_mapping(cfg.M, "pam")
+    px = symbol_pmf(cfg.M, "pam", cfg.probDist, cfg.shapingFactor)
+    return const / np.sqrt(np.sum(px * np.abs(const) ** 2)), px
+
+
+def pam_tx_draw(generator, config: PAMTxConfig = PAMTxConfig()):
+    """The PAM Tx's random draw on the generator's device: the symbols
+    (nSymbols, nPolModes) float32."""
+    cfg = config
+    const, px = _pam_constellation(cfg)
+    idx = draw_symbol_indices(generator, px, (cfg.nSymbols, cfg.nPolModes))
+    return torch.as_tensor(const.astype(np.float32), device=generator.device)[idx]
+
+
+def pam_tx_build(symbols, config: PAMTxConfig = PAMTxConfig()):
+    """Deterministic part of the PAM Tx for (nSymbols, C) real ``symbols``,
+    each column its own signal: upsample -> pulse shaping -> scaling to
+    Vpi at the column's peak -> MZM -> launch power per column.
+
+    Returns the optical field (nSamples, C) complex64.
+    """
+    cfg = config
+    pulse = pulse_shape(cfg.pulseType, cfg.SpS, cfg.nFilterTaps, cfg.pulseRollOff)
+    sig = fir_filter(pulse, upsample(symbols, cfg.SpS))
+    sig = cfg.mzmVpi * sig / torch.amax(torch.abs(sig), dim=0, keepdim=True)
+    mzm_cfg = MZMConfig(Vpi=cfg.mzmVpi, Vb=-cfg.mzmVb, ER=cfg.mzmER)
+    sig_o = mzm(torch.ones_like(sig), cfg.mzmScale * sig, mzm_cfg)
+    power = torch.mean((sig_o * sig_o.conj()).real, dim=0, keepdim=True)
+    return math.sqrt(dbm2w(cfg.power)) * (sig_o / torch.sqrt(power))
+
+
+def pam_transmitter(generator_or_seed, config: PAMTxConfig = PAMTxConfig(), device=None):
+    """Optical PAM/IM-DD transmitter (reference tx.py:231).
+
+    ``generator_or_seed`` is a ``torch.Generator`` (its device is the Tx's)
+    or an integer seed for a new generator on ``device`` (the CUDA device
+    when none is named). Returns (sig_tx, symb_tx): the MZM-modulated field
+    (nSamples,) or (nSamples, nPolModes) and the transmitted PAM symbols.
+    """
+    gen = ensure_generator(generator_or_seed, device)
+    symb = pam_tx_draw(gen, config)
+    sig_o = pam_tx_build(symb, config)
+    if config.nPolModes == 1:
+        return sig_o[:, 0], symb[:, 0]
+    return sig_o, symb

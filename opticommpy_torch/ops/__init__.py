@@ -16,6 +16,7 @@ from opticommpy_torch.ops.noise import (
     phase_noise,
 )
 from opticommpy_torch.ops.signal import (
+    anorm,
     clock_sampling_interp,
     decimate,
     delay_signal,
@@ -25,6 +26,7 @@ from opticommpy_torch.ops.signal import (
     pnorm,
     resample,
     sig_pow,
+    signal_power,
     symbol_sync,
     upsample,
 )
@@ -41,6 +43,7 @@ __all__ = [
     "gaussian_complex_noise",
     "gaussian_noise",
     "phase_noise",
+    "anorm",
     "clock_sampling_interp",
     "decimate",
     "delay_signal",
@@ -50,6 +53,7 @@ __all__ = [
     "pnorm",
     "resample",
     "sig_pow",
+    "signal_power",
     "symbol_sync",
     "upsample",
 ]

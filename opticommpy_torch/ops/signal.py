@@ -16,7 +16,9 @@ from opticommpy_torch.utils.scan import cumsum
 
 __all__ = [
     "sig_pow",
+    "signal_power",
     "pnorm",
+    "anorm",
     "upsample",
     "clock_sampling_interp",
     "decimate",
@@ -49,10 +51,52 @@ def sig_pow(x):
     return torch.mean(torch.abs(torch.as_tensor(x)) ** 2)
 
 
+def signal_power(x):
+    """Total power: sum over modes of the per-mode average power (core.py:69)."""
+    x = torch.as_tensor(x)
+    if x.ndim == 1:
+        x = x[:, None]
+    return torch.sum(torch.mean(_power(x), dim=0))
+
+
 def pnorm(x):
     """Normalize ``x`` to unit average power (global mean, core.py:701)."""
     x = torch.as_tensor(x)
     return x / torch.sqrt(torch.mean(_power(x)))
+
+
+def tree_sum(p):
+    """Pairwise sum over the last dimension, zero-padded to a power of two:
+    s[i] += s[i + h] for h = P/2, ..., 1. The order is fixed, so a row's
+    sum is the same in any batch and on any device."""
+    n = p.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width > n:
+        p = torch.cat([p, p.new_zeros(p.shape[:-1] + (width - n,))], dim=-1)
+    while p.shape[-1] > 1:
+        h = p.shape[-1] // 2
+        p = p[..., :h] + p[..., h:]
+    return p[..., 0]
+
+
+def row_mean(x):
+    """Mean over the last dimension by :func:`tree_sum` (batch-invariant).
+    The divisor is a device tensor: a true division on CUDA as on the CPU
+    (a Python-scalar divisor may become a product by its reciprocal). It is
+    filled on the device: a copy from the host would wait for the stream."""
+    return tree_sum(x) / torch.full((), float(x.shape[-1]), device=x.device)
+
+
+def pnorm_rows(x):
+    """:func:`pnorm` of each row (last dimension) on its own, in one pass
+    over the batch; a row's result does not depend on the batch."""
+    return x / torch.sqrt(row_mean(_power(x)))[..., None]
+
+
+def anorm(x):
+    """Normalize ``x`` to unit peak amplitude (core.py:720)."""
+    x = torch.as_tensor(x)
+    return x / torch.amax(torch.abs(x))
 
 
 def upsample(x, factor):

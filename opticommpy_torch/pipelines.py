@@ -22,6 +22,10 @@ by one decimating frequency-domain filter per signal
 (``mimo_apply_fused``), then one BPS launch over all signals' columns.
 :func:`coherent_coded_serve` adds bit LLRs and LDPC decoding to it (the
 fused QC kernels K9 and K10 for DVB-S2 codes on CUDA).
+
+:func:`imdd_dsp_chain_batch` is the IM-DD (direct-detection PAM) receiver
+for a batch of photodiode currents: DC removal, symbol-rate sampling and
+one DFE (or FFE) launch for all signals (K13, ``kernels/dfe.py``).
 """
 
 from dataclasses import dataclass
@@ -29,7 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from opticommpy_torch.comm.modulation import gray_mapping
+from opticommpy_torch.comm.modulation import norm_const
 from opticommpy_torch.dsp.carrier_recovery import bps, fourth_power_foe, unwrap
 from opticommpy_torch.dsp.clock_recovery import (
     ClockRecoveryConfig,
@@ -47,10 +51,10 @@ from opticommpy_torch.dsp.equalization import (
     mimo_adapt_equalizer_batch,
 )
 from opticommpy_torch.ops.filtering import fir_filter, pulse_shape
-from opticommpy_torch.ops.signal import decimate, pnorm
+from opticommpy_torch.ops.signal import decimate, pnorm, row_mean
 
 __all__ = ["CoherentDSPConfig", "coherent_dsp_chain", "coherent_dsp_chain_batch",
-           "coherent_dsp_serve", "coherent_coded_serve"]
+           "coherent_dsp_serve", "coherent_coded_serve", "IMDDConfig", "imdd_dsp_chain_batch"]
 
 
 @dataclass(frozen=True)
@@ -112,11 +116,6 @@ def _stage_lengths(cfg: CoherentDSPConfig, n_sym: int):
         "mimo_adapt_equalizer directly for longer schedules")
 
 
-def _norm_const(M):
-    const = gray_mapping(M, "qam")
-    return (const / np.sqrt(np.mean(np.abs(const) ** 2))).astype(np.complex64)
-
-
 def _ffw_config(cfg):
     return FFWClockRecoveryConfig(blockLen=cfg.crBlockLen, maxPPM=cfg.crMaxPPM,
                                   rollOff=cfg.rollOff, fit=cfg.crFit, sps=cfg.SpS_dsp)
@@ -172,7 +171,7 @@ def coherent_dsp_chain(sig, symb_ref, config: CoherentDSPConfig = CoherentDSPCon
         if cfg.runFOE:
             x, _ = fourth_power_foe(x, fs_dsp, 4)
             x = pnorm(x)
-        y, _ = mimo_eq_kernel(x, pnorm(symb_ref), _norm_const(cfg.M), alg="lms",
+        y, _ = mimo_eq_kernel(x, pnorm(symb_ref), norm_const(cfg.M, "qam"), alg="lms",
                               n_taps=cfg.nTaps, sps=cfg.SpS_dsp,
                               mu=float(cfg.mu[0]), n_train=cfg.nTrain)
     else:
@@ -186,7 +185,7 @@ def coherent_dsp_chain(sig, symb_ref, config: CoherentDSPConfig = CoherentDSPCon
     if cfg.runFOE and cfg.eqBackend != "pallas-lms":
         y, _ = fourth_power_foe(y, cfg.Rs, 4)
         y = pnorm(y)
-    const = _norm_const(cfg.M)
+    const = norm_const(cfg.M, "qam")
     if cfg.cprBackend == "pallas":
         from opticommpy_torch.kernels.bps import bps_kernel
 
@@ -257,7 +256,7 @@ def coherent_dsp_chain_batch(sig_batch, symb_ref_batch,
             f"clock recovery retains only {x.shape[1] // cfg.SpS_dsp} "
             "((1 - crMaxPPM/1e6) * n_samples / SpS_dsp) — trim the "
             "reference")
-    const = _norm_const(cfg.M)
+    const = norm_const(cfg.M, "qam")
     ref = torch.stack([pnorm(r) for r in symb_ref_batch])
     if cfg.eqBackend == "pallas":
         eq_cfg = MIMOEqualizerConfig(
@@ -321,7 +320,7 @@ def coherent_dsp_serve(sig_batch, H_batch, config: CoherentDSPConfig = CoherentD
     y = _fused_apply(H_batch, sig_batch, cfg.SpS_dsp, P, nfft, scale)
     b, n_sym, m = y.shape
     y_cols = y.transpose(0, 1).reshape(n_sym, b * m)
-    phases = bps_kernel(y_cols, cfg.cpr_window // 2, _norm_const(cfg.M), cfg.cpr_phases)
+    phases = bps_kernel(y_cols, cfg.cpr_window // 2, norm_const(cfg.M, "qam"), cfg.cpr_phases)
     phases = unwrap(4 * phases, dim=0) / 4
     out = (y_cols * torch.exp(1j * phases)).reshape(n_sym, b, m).transpose(0, 1)
     return (out[0], phases[:, :m]) if squeeze else (out, phases)
@@ -368,14 +367,13 @@ def coherent_coded_serve(sig_batch, H_batch, config: CoherentDSPConfig = Coheren
     from opticommpy_torch.comm.fec import LDPCConfig, decode_ldpc, standard_ldpc
     from opticommpy_torch.comm.metrics import calc_llr
     from opticommpy_torch.comm.modulation import bit_map
-    from opticommpy_torch.utils.rng import default_device
+    from opticommpy_torch.utils.rng import as_device_tensor
 
     if fec_graph is None:
         fec_graph, _ = standard_ldpc("DVBS2", 64800, "4/5")
     if fec_config is None:
         fec_config = LDPCConfig(maxIter=20, alg="NMSA", msgDtype="bf16", earlyExit=True)
-    if not isinstance(sig_batch, torch.Tensor):
-        sig_batch = torch.as_tensor(np.asarray(sig_batch), device=default_device())
+    sig_batch = as_device_tensor(sig_batch)
     out, _ = coherent_dsp_serve(sig_batch, H_batch, config, scale)
     out3 = out if out.ndim == 3 else out[None]
     B, n_sym, modes = out3.shape
@@ -385,7 +383,7 @@ def coherent_coded_serve(sig_batch, H_batch, config: CoherentDSPConfig = Coheren
         c = torch.sum(out3[:, :pg.shape[1]] * pg.conj(), dim=1)  # (B, modes)
         k = torch.round(torch.angle(c) / (np.pi / 2)) % 4
         out3 = out3 * torch.exp(-1j * (np.pi / 2) * k)[:, None, :]
-    const = _norm_const(config.M)
+    const = norm_const(config.M, "qam")
     px = np.full(config.M, 1.0 / config.M)
     ys = out3.transpose(1, 2).reshape(B, modes * n_sym)  # mode-major
     llr = calc_llr(ys, noise_var, const, bit_map(config.M, "qam"), px).reshape(B, -1)
@@ -396,3 +394,69 @@ def coherent_coded_serve(sig_batch, H_batch, config: CoherentDSPConfig = Coheren
     llr_cols = llr[:, :ncw * n_code].reshape(B * ncw, n_code).T
     bits, _, fail = decode_ldpc(llr_cols, graph=fec_graph, config=fec_config)
     return bits, fail, (out3[0] if out.ndim == 2 else out3)
+
+
+@dataclass(frozen=True)
+class IMDDConfig:
+    """IM-DD (direct-detection PAM) receiver chain configuration (same
+    fields and defaults as the JAX package's)."""
+
+    SpS_in: int = 8  # photodiode-current oversampling
+    M: int = 4
+    eq: str = "dfe"  # 'dfe' | 'ffe'
+    nTapsFF: int = 15
+    nTapsFB: int = 5
+    mu: float = 2e-3
+    nTrain: int = 8000
+    trainingMode: str = "fulltime"
+
+
+def imdd_dsp_chain_batch(i_rx_batch, symb_ref_batch, config: IMDDConfig = IMDDConfig()):
+    """IM-DD PAM receiver for a batch of signals (port of the JAX
+    ``imdd_dsp_chain_batch``).
+
+    Per signal: DC removal (photodiode currents are unipolar; the slicer
+    expects zero-mean PAM), symbol-rate sampling ``x[::SpS_in][:nSym]``, then
+    the equalizer: :func:`~opticommpy_torch.kernels.dfe.dfe_kernel` with
+    ``eq="dfe"``, else :func:`~opticommpy_torch.kernels.dfe.ffe_kernel`,
+    every signal's recurrence in one K13 launch on CUDA (its plain version
+    for CPU tensors). Each signal is normalized on its own, so one signal's
+    output does not depend on the batch it rides in.
+
+    Parameters
+    ----------
+    i_rx_batch : (B, N) real photodiode currents at ``SpS_in``
+        samples/symbol (a single (N,) stream is also accepted); a NumPy
+        array goes to the CUDA device, a tensor stays on its own.
+    symb_ref_batch : (B, nSym) reference PAM symbols (any scale).
+
+    Returns
+    -------
+    (y (B, nSym) equalized symbols: complex64 from the DFE, real from the
+    FFE; mse (B, nSym) per-symbol squared error).
+    """
+    from opticommpy_torch.dsp.equalization import DFEConfig, FFEConfig
+    from opticommpy_torch.kernels.dfe import dfe_kernel, ffe_kernel
+    from opticommpy_torch.utils.rng import as_device_tensor
+
+    cfg = config
+    x = as_device_tensor(i_rx_batch)
+    symb_ref_batch = torch.as_tensor(symb_ref_batch).to(x.device)
+    squeeze = x.ndim == 1
+    if squeeze:
+        x, symb_ref_batch = x[None], symb_ref_batch[None]
+    x = x - row_mean(x)[:, None]
+    n_sym = symb_ref_batch.shape[1]
+    samples = x[:, ::cfg.SpS_in][:, :n_sym]
+    if cfg.eq == "dfe":
+        eq_cfg = DFEConfig(nTapsFF=cfg.nTapsFF, nTapsFB=cfg.nTapsFB, mu=cfg.mu,
+                           nTrain=cfg.nTrain, M=cfg.M, constType="pam",
+                           trainingMode=cfg.trainingMode)
+        y, _, _, mse = dfe_kernel(samples, symb_ref_batch, eq_cfg)
+    else:
+        eq_cfg = FFEConfig(nTaps=cfg.nTapsFF, mu=cfg.mu, nTrain=cfg.nTrain, M=cfg.M,
+                           constType="pam", trainingMode=cfg.trainingMode)
+        y, _, mse = ffe_kernel(samples, symb_ref_batch, eq_cfg)
+    if squeeze:
+        return y[0], mse[0]
+    return y, mse

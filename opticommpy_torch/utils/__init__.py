@@ -2,6 +2,14 @@
 run-independent cumulative sum (:mod:`.scan`)."""
 
 from opticommpy_torch.utils.rng import ensure_generator
-from opticommpy_torch.utils.units import db2lin, dbm2w, lin2db, w2dbm
+from opticommpy_torch.utils.units import (
+    ber2qfactor,
+    db2lin,
+    dbm2w,
+    lin2db,
+    llr2bit_prob,
+    w2dbm,
+)
 
-__all__ = ["db2lin", "dbm2w", "lin2db", "w2dbm", "ensure_generator"]
+__all__ = ["db2lin", "dbm2w", "lin2db", "w2dbm", "ber2qfactor", "llr2bit_prob",
+           "ensure_generator"]

@@ -5,9 +5,10 @@ Where the JAX package threads a ``jax.random`` key, the port takes a
 on. The two frameworks give different numbers from the same seed.
 """
 
+import numpy as np
 import torch
 
-__all__ = ["ensure_generator", "default_device"]
+__all__ = ["ensure_generator", "default_device", "as_device_tensor"]
 
 
 def default_device(device=None):
@@ -24,6 +25,15 @@ def default_device(device=None):
             "no device named and CUDA is not available: pass device='cpu' "
             "(or a CPU generator) to run on the CPU")
     return torch.device("cuda")
+
+
+def as_device_tensor(x):
+    """``x`` as a tensor: a tensor stays on its device; anything else (a
+    NumPy array, a list) goes to :func:`default_device`, so only a CPU
+    tensor asks for the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x), device=default_device())
 
 
 def ensure_generator(generator_or_seed, device=None):

@@ -18,10 +18,16 @@ from opticommpy_tpu.dsp.clock_recovery import (  # noqa: E402
     ClockRecoveryConfig,
     FFWClockRecoveryConfig,
 )
-from opticommpy_tpu.dsp.equalization import EDCConfig, MIMOEqualizerConfig  # noqa: E402
+from opticommpy_tpu.dsp.equalization import (  # noqa: E402
+    DFEConfig,
+    EDCConfig,
+    FFEConfig,
+    MIMOEqualizerConfig,
+    VolterraConfig,
+)
 from opticommpy_tpu.models import config as jax_model_config  # noqa: E402
-from opticommpy_tpu.models.tx import WDMTxConfig  # noqa: E402
-from opticommpy_tpu.pipelines import CoherentDSPConfig  # noqa: E402
+from opticommpy_tpu.models.tx import PAMTxConfig, WDMTxConfig  # noqa: E402
+from opticommpy_tpu.pipelines import CoherentDSPConfig, IMDDConfig  # noqa: E402
 from opticommpy_torch.convert import (  # noqa: E402
     config_from_jax,
     port_config_classes,
@@ -37,7 +43,8 @@ JAX_CONFIGS = sorted(
     [obj for obj in vars(jax_model_config).values()
      if dataclasses.is_dataclass(obj) and isinstance(obj, type)]
     + [WDMTxConfig, EDCConfig, MIMOEqualizerConfig, CPRConfig, CoherentDSPConfig,
-       ClockRecoveryConfig, FFWClockRecoveryConfig, LDPCConfig],
+       ClockRecoveryConfig, FFWClockRecoveryConfig, LDPCConfig, DFEConfig, FFEConfig,
+       VolterraConfig, PAMTxConfig, IMDDConfig],
     key=lambda c: c.__name__)
 
 
