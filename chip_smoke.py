@@ -340,6 +340,22 @@ def _cuda_ms(fn, reps, warmup=True):
     return start.elapsed_time(end) / reps
 
 
+def _sm_clock_mhz():
+    """The card's SM clock now (MHz), as nvidia-smi reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def _with_cycles(entry, n_sym, sm_mhz):
+    """Add the SM clock read after the timed window and the cycles one
+    symbol of one signal took: ms / n_sym x clocks.sm (recurrences are bound
+    by the latency of one symbol's step)."""
+    entry["sm_clock_mhz"] = sm_mhz
+    entry["cycles_per_symbol"] = entry["ms"] * 1e-3 / n_sym * sm_mhz * 1e6
+    return entry
+
+
 def _wall(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -501,6 +517,7 @@ def phase_batch_kernels_vs_plain(dev, const):
     h_flat = _spike(dev, 11).permute(0, 1, 3, 2).reshape(11, 2, 30)
     args = (const, mimo_eq.stage_aux("da-rde", const), "da-rde", 5e-3, 0, 2, 15, 0, 12000)
     ms = _cuda_ms(lambda: mimo_eq.mimo_eq_stage_batch(sig_pad, ref, h_flat, *args), 5)
+    sm_mhz = _sm_clock_mhz()
     plain_ms = _cuda_ms(lambda: mimo_eq.mimo_eq_stage_batch_plain(
         sig_pad, ref, h_flat, *args), 1, warmup=False)
     y_k, _ = mimo_eq.mimo_eq_stage_batch(sig_pad, ref, h_flat, *args)
@@ -509,8 +526,9 @@ def phase_batch_kernels_vs_plain(dev, const):
     print(f"K3 mimo_eq_batch da-rde (B=11 x 12000 sym, 2x2, 15 taps): max |y err| "
           f"{err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
     _check(err < EQ_Y_ATOL, "batched equalizer kernel disagrees with plain (B=11)")
-    report["mimo_eq_batch"] = _with_bound(
-        dict(max_abs_err=max(worst, err), ms=ms, plain_ms=plain_ms), *_eq_cost(11, 12000))
+    report["mimo_eq_batch"] = _with_cycles(_with_bound(
+        dict(max_abs_err=max(worst, err), ms=ms, plain_ms=plain_ms), *_eq_cost(11, 12000)),
+        12000, sm_mhz)
     report["k3_vs_k2_max_abs_diff"] = k2_diff
 
     # K5: the batched RLS at B=11 x 12000 symbols, lambda 0.99 (the chain's)
@@ -525,6 +543,7 @@ def phase_batch_kernels_vs_plain(dev, const):
         h_err = float((h_k - h_p).abs().max())
         sd_rel = float((s_k - s_p).abs().max() / s_p.abs().max())
         ms = _cuda_ms(lambda: rls.rls_stage_batch(*args), 3)
+        sm_mhz = _sm_clock_mhz()
         plain_ms = _cuda_ms(lambda: rls.rls_stage_plain(*args), 1, warmup=False)
         print(f"K5 rls_batch {alg} (B=11 x 12000 sym, 2x2, 15 taps, lambda 0.99): "
               f"max |y err| {y_err:.3e}, max |H err| {h_err:.3e}, Sd rel err "
@@ -533,9 +552,11 @@ def phase_batch_kernels_vs_plain(dev, const):
                f"RLS kernel disagrees with plain ({alg})")
         _check(bool(torch.isfinite(y_k).all()), f"K5 output not finite ({alg})")
         worst = max(worst, y_err)
-        times.append((ms, plain_ms))
-    report["rls_batch"] = _with_bound(
-        dict(max_abs_err=worst, ms=times[0][0], plain_ms=times[0][1]), *_rls_cost(11, 12000))
+        times.append((ms, plain_ms, sm_mhz))
+    report["rls_batch"] = _with_cycles(_with_bound(
+        dict(max_abs_err=worst, ms=times[0][0], plain_ms=times[0][1]), *_rls_cost(11, 12000)),
+        12000, times[0][2])
+    report["rls_batch"]["dd_rls_ms"] = times[1][0]
 
     # K4: the single-signal RLS with the argmin slicer, 8-PSK dd-rls
     psk = np.exp(2j * np.pi * np.arange(8) / 8).astype(np.complex64)
@@ -546,13 +567,14 @@ def phase_batch_kernels_vs_plain(dev, const):
     y_err = float((y_k - y_p[0]).abs().max())
     h_err = float((h_k - h_p[0]).abs().max())
     ms = _cuda_ms(lambda: rls.rls_stage(*args), 5)
+    sm_mhz = _sm_clock_mhz()
     plain_ms = _cuda_ms(lambda: rls.rls_stage_plain(*(a[None] for a in args[:4]), *args[4:]),
                         1, warmup=False)
     print(f"K4 rls argmin dd-rls 8-PSK (4096 sym, 2x2, 15 taps, lambda 0.99): max |y err| "
           f"{y_err:.3e}, max |H err| {h_err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
     _check(y_err < EQ_Y_ATOL and h_err < EQ_H_ATOL, "K4 disagrees with plain (8-PSK)")
-    report["rls_argmin"] = _with_bound(dict(max_abs_err=y_err, ms=ms, plain_ms=plain_ms),
-                                       *_rls_cost(1, 4096))
+    report["rls_argmin"] = _with_cycles(_with_bound(
+        dict(max_abs_err=y_err, ms=ms, plain_ms=plain_ms), *_rls_cost(1, 4096)), 4096, sm_mhz)
     return report
 
 
@@ -611,14 +633,16 @@ def phase_kernels_vs_plain(dev, const):
     args = (sig_pad, ref, h_flat, const, mimo_eq.stage_aux("da-rde", const), "da-rde",
             5e-3, 0, 2, 15, 0, 12000)
     ms = _cuda_ms(lambda: mimo_eq.mimo_eq_stage(*args), 5)
+    sm_mhz = _sm_clock_mhz()
     (y_p, _), plain_s = _wall(lambda: mimo_eq.mimo_eq_stage_plain(*args))
     y_k, _ = mimo_eq.mimo_eq_stage(*args)
     err = float((y_k - y_p).abs().max())
     print(f"K2 mimo_eq da-rde (12000 sym, 2x2, 15 taps): max |y err| {err:.3e}, "
           f"kernel {ms:.3f} ms, plain {plain_s * 1e3:.1f} ms")
     _check(err < EQ_Y_ATOL, "equalizer kernel disagrees with plain (12000 symbols)")
-    report["mimo_eq"] = _with_bound(dict(max_abs_err=max(worst, err), ms=ms,
-                                         plain_ms=plain_s * 1e3), *_eq_cost(1, 12000))
+    report["mimo_eq"] = _with_cycles(_with_bound(
+        dict(max_abs_err=max(worst, err), ms=ms, plain_ms=plain_s * 1e3), *_eq_cost(1, 12000)),
+        12000, sm_mhz)
     return report
 
 

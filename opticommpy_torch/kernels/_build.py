@@ -1,13 +1,14 @@
 """Build and load the hand-written Hopper kernels in ``opticommpy_torch/csrc``.
 
-All ``*.cu`` sources are compiled with ``nvcc`` into one shared library with
-a plain C interface (``-gencode arch=compute_90a,code=sm_90a``), which is
-loaded with :mod:`ctypes`. Each source is compiled by its own ``nvcc``
-process, all started together, and the objects are then linked. The library is built on first use into
-``build/torch_kernels/`` at the root of the checkout, named by a hash of the
-sources so that an edited source is never served by a stale build. Nothing
-here runs at import time: the CPU tests import every module of the package
-on a machine with no CUDA toolkit.
+All ``*.cu`` sources, with the ``*.cuh`` headers they include, are compiled
+with ``nvcc`` into one shared library with a plain C interface
+(``-gencode arch=compute_90a,code=sm_90a``), which is loaded with
+:mod:`ctypes`. Each source is compiled by its own ``nvcc`` process, all
+started together, and the objects are then linked. The library is built on
+first use into ``build/torch_kernels/`` at the root of the checkout, named
+by a hash of the sources and headers so that an edited file is never served
+by a stale build. Nothing here runs at import time: the CPU tests import
+every module of the package on a machine with no CUDA toolkit.
 """
 
 import ctypes
@@ -34,6 +35,8 @@ _SIGNATURES = {
     "mimo_eq_launch": [_I, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I,
                        _I, _I, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _I,
                        _F, _I, _P, _P, _P, _P],
+    "mimo_eq_chunk": [_I, _I, _I],
+    "rls_chunk": [_I, _I, _I],
     "rls_launch": [_I, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I,
                    _I, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P, _P,
                    _P],
@@ -72,7 +75,7 @@ def load_library():
         return _lib
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sorted(_CSRC.glob("*.cu*")):  # the sources and their headers
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())

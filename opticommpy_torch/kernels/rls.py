@@ -32,17 +32,26 @@ import torch
 from opticommpy_torch.kernels import _build
 from opticommpy_torch.kernels.bps import _quantize, _square_qam_levels
 from opticommpy_torch.kernels.mimo_eq import _kernel_inputs as _pad_inputs
+from opticommpy_torch.kernels.mimo_eq import device_tables
 
 __all__ = ["mimo_rls_kernel", "mimo_rls_kernel_batch", "rls_stage",
-           "rls_stage_batch", "rls_stage_plain", "launches", "batch_launches"]
+           "rls_stage_batch", "rls_stage_plain", "chunk_symbols", "launches",
+           "batch_launches"]
 
 launches = 0  # K4 launches made by rls_stage on CUDA tensors
 batch_launches = 0  # K5 launches made by rls_stage_batch on CUDA tensors
 
 _SLICER = {"ref": 0, "grid": 1, "argmin": 2}
-# limits of csrc/rls.cu: one thread per (mode, tap) row, at most 256; up to
-# 8 modes and 32 taps; 1024 constellation points for the argmin slicer
+# limits of csrc/rls.cu: up to 8 modes and 32 taps (padded to 8, 16 or 32),
+# 256 = modes*taps window values; 1024 constellation points for the argmin
+# slicer
 _MAX_ROWS, _MAX_MODES, _MAX_TAPS, _MAX_TABLE = 256, 8, 32, 1024
+
+
+def chunk_symbols(modes, n_taps, sps):
+    """Symbols per chunk that ``csrc/rls.cu`` stages in shared memory for a
+    pass of this shape (builds the library: CUDA only)."""
+    return int(_build.load_library().rls_chunk(modes, n_taps, sps * modes))
 
 
 def _check_args(sig_pad, ref, H, Sd, alg, sps, n_taps, n_start, length):
@@ -149,8 +158,7 @@ def _rls_cuda(sig_pad, ref, H, Sd, const, alg, lam, sps, n_taps, n_start,
     lib = _build.load_library()
     grid = _square_qam_levels(const.real, const.imag)
     lo, step, top = (grid[0], grid[1], grid[2] - 1.0) if grid else (0.0, 1.0, 0.0)
-    c_re = torch.as_tensor(const.real.copy(), device=dev)
-    c_im = torch.as_tensor(const.imag.copy(), device=dev)
+    c_re, c_im, _ = device_tables(const, None, dev)
     sig_pad = sig_pad.to(torch.complex64).contiguous()
     ref = ref.to(device=dev, dtype=torch.complex64).contiguous()
     h0 = H.to(device=dev, dtype=torch.complex64).contiguous()

@@ -84,3 +84,32 @@ def require_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+def padded_modes(seed, n_batch, n_sym, modes, n_taps, sps=2, const=None):
+    """(padded signals (B, rows, modes), symbols (B, n_sym, modes)) complex64
+    NumPy: symbols of ``const`` (16-QAM by default) at ``sps`` samples per
+    symbol through a random mixing matrix near the identity, plus noise of
+    0.01, with n_taps // 2 zero rows in front and n_taps behind (an
+    odd row count times an odd ``modes`` puts odd signals of a batch off
+    16-byte alignment)."""
+    rng = np.random.default_rng(seed)
+    const = norm_qam(16) if const is None else np.asarray(const, np.complex64)
+    sym = const[rng.integers(0, len(const), size=(n_batch, n_sym, modes))]
+    x = np.zeros((n_batch, n_sym * sps, modes), complex)
+    x[:, ::sps] = sym
+    h = np.eye(modes) + 0.1 * (rng.normal(size=(modes, modes))
+                               + 1j * rng.normal(size=(modes, modes)))
+    sig = x @ h.T + 0.01 * (rng.normal(size=x.shape) + 1j * rng.normal(size=x.shape))
+    rows = n_taps // 2 + n_sym * sps + n_taps
+    pad = np.zeros((n_batch, rows, modes), np.complex64)
+    pad[:, n_taps // 2:n_taps // 2 + n_sym * sps] = sig
+    return pad, sym.astype(np.complex64)
+
+
+def spike_taps(n_batch, modes, n_taps):
+    """(B, modes, modes, n_taps) complex64 NumPy taps: a unit centre tap on
+    each mode's own path."""
+    h = np.zeros((n_batch, modes, modes, n_taps), np.complex64)
+    h[:, np.arange(modes), np.arange(modes), n_taps // 2] = 1.0
+    return h

@@ -348,3 +348,27 @@ def test_batched_kernel_bit_identical_to_single_on_gpu():
                                           torch.as_tensor(sym[b], device=dev), const,
                                           alg="lms", n_train=1000)
         assert torch.equal(y_b[b], y_s) and torch.equal(h_b[b], h_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_batch", [1, 11])
+@pytest.mark.parametrize("alg", RULES)
+def test_batched_kernel_b1_b11_bit_identical_to_k2_on_gpu(alg, n_batch):
+    """K3 on B = 1 and B = 11 signals (the batch chain's width): each signal
+    equals K2 on it alone bit for bit, and the batch the plain version."""
+    dev = require_cuda()
+    sig, sym = _batch(800, n_batch, 1000)
+    const = norm_qam(16)
+    sig_pad, ref, h0 = mimo_eq._kernel_inputs(torch.as_tensor(sig, device=dev),
+                                              torch.as_tensor(sym, device=dev), None, 15, 2,
+                                              None)
+    args = (const, mimo_eq.stage_aux(alg, const), alg, 1e-3, 300, 2, 15, 0, 1000)
+    h_flat = mimo_eq._flat(h0)
+    y_b, h_b = mimo_eq.mimo_eq_stage_batch(sig_pad, ref, h_flat, *args)
+    y_p, h_p = mimo_eq.mimo_eq_stage_batch_plain(sig_pad, ref, h_flat, *args)
+    torch.cuda.synchronize()
+    assert float((y_b - y_p).abs().max()) < Y_ATOL
+    assert float((h_b - h_p).abs().max()) < H_ATOL
+    for b in range(n_batch):
+        y_s, h_s = mimo_eq.mimo_eq_stage(sig_pad[b], ref[b], h_flat[b], *args)
+        assert torch.equal(y_b[b], y_s) and torch.equal(h_b[b], h_s)

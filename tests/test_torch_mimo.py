@@ -20,7 +20,14 @@ from opticommpy_torch.convert import config_from_jax, taps_to_numpy  # noqa: E40
 from opticommpy_torch.dsp import equalization as teq  # noqa: E402
 from opticommpy_torch.kernels import mimo_eq  # noqa: E402
 
-from _torch_parity import mixed_polmux, norm_qam, require_cuda, to_np  # noqa: E402
+from _torch_parity import (  # noqa: E402
+    mixed_polmux,
+    norm_qam,
+    padded_modes,
+    require_cuda,
+    spike_taps,
+    to_np,
+)
 
 Y_ATOL, H_ATOL = 2e-4, 1e-3
 RULES = ["lms", "nlms", "cma", "rde", "da-rde"]
@@ -146,3 +153,106 @@ def test_kernel_matches_plain_on_gpu(alg):
     torch.cuda.synchronize()
     assert float((y_k - y_p).abs().max()) < Y_ATOL
     assert float((h_k - h_p).abs().max()) < H_ATOL
+
+
+def test_device_tables_cached_per_constellation_and_device():
+    """The wrappers' constellation and aux tables are uploaded once per
+    (constellation, aux, device): equal inputs return the cached tensors,
+    a different constellation, aux vector or device a new entry."""
+    qam = norm_qam(16)
+    psk = np.exp(2j * np.pi * np.arange(8) / 8).astype(np.complex64)
+    aux = mimo_eq.stage_aux("rde", qam)
+    first = mimo_eq.device_tables(qam, aux, "cpu")
+    again = mimo_eq.device_tables(qam.copy(), aux.copy(), torch.device("cpu"))
+    assert all(a is b for a, b in zip(first, again))
+    np.testing.assert_array_equal(first[0].numpy(), qam.real)
+    np.testing.assert_array_equal(first[1].numpy(), qam.imag)
+    np.testing.assert_array_equal(first[2].numpy(), aux)
+    other = mimo_eq.device_tables(psk, aux, "cpu")
+    assert other[0] is not first[0]
+    np.testing.assert_array_equal(other[0].numpy(), psk.real)
+    assert mimo_eq.device_tables(qam, None, "cpu")[2] is not first[2]
+    meta = mimo_eq.device_tables(qam, aux, "meta")
+    assert meta[0].device.type == "meta" and meta[0] is not first[0]
+
+
+PSK8 = np.exp(2j * np.pi * np.arange(8) / 8).astype(np.complex64)
+
+
+def _gpu_stage(dev, seed, modes, n_taps, alg, n_sym, *, const=None, n_batch=1, sps=2,
+               n_start=0, n_train=None, mu=1e-3):
+    """K2 (B = 1) or K3 against the plain version on the card, one pass of
+    ``n_sym`` symbols from symbol ``n_start``; returns the kernel's (y, H)."""
+    const = norm_qam(16) if const is None else const
+    sig, sym = padded_modes(seed, n_batch, n_start + n_sym, modes, n_taps, sps, const)
+    h_flat = mimo_eq._flat(torch.as_tensor(spike_taps(n_batch, modes, n_taps), device=dev))
+    args = (torch.as_tensor(sig, device=dev), torch.as_tensor(sym[:, n_start:], device=dev),
+            h_flat, const, mimo_eq.stage_aux(alg, const), alg, mu,
+            n_sym // 2 if n_train is None else n_train, sps, n_taps, n_start, n_sym)
+    if n_batch == 1:
+        before = mimo_eq.launches
+        y_k, h_k = mimo_eq.mimo_eq_stage(*(a[0] for a in args[:3]), *args[3:])
+        y_k, h_k = y_k[None], h_k[None]
+        assert mimo_eq.launches == before + 1
+    else:
+        before = mimo_eq.batch_launches
+        y_k, h_k = mimo_eq.mimo_eq_stage_batch(*args)
+        assert mimo_eq.batch_launches == before + 1
+    y_p, h_p = mimo_eq.mimo_eq_stage_batch_plain(*args)
+    torch.cuda.synchronize()
+    assert y_k.shape == (n_batch, n_sym, modes) and bool(torch.isfinite(y_k).all())
+    if n_sym:
+        assert float((y_k - y_p).abs().max()) < Y_ATOL
+    assert float((h_k - h_p).abs().max()) < H_ATOL
+    return y_k, h_k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["0", "1", "chunk-1", "chunk", "chunk+1"])
+def test_kernel_chunk_edges_on_gpu(case):
+    """Passes of 0, 1 and about one staged chunk of symbols."""
+    dev = require_cuda()
+    chunk = mimo_eq.chunk_symbols(2, 15, 2)
+    n_sym = {"0": 0, "1": 1, "chunk-1": chunk - 1, "chunk": chunk,
+             "chunk+1": chunk + 1}[case]
+    _gpu_stage(dev, 50, 2, 15, "lms", n_sym)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["inside", "boundary"])
+def test_kernel_lms_switch_in_a_chunk_on_gpu(where):
+    """lms switches from references to decisions inside a chunk or on its
+    boundary."""
+    dev = require_cuda()
+    chunk = mimo_eq.chunk_symbols(2, 15, 2)
+    n_train = chunk + 37 if where == "inside" else chunk
+    _gpu_stage(dev, 51, 2, 15, "lms", 2 * chunk + 5, n_train=n_train)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_batch", [1, 2])
+def test_kernel_unaligned_start_on_gpu(n_batch):
+    """n_start > 0 with a start offset (n_start * sps * modes = 3 values) off
+    16-byte alignment; at B = 2 the second signal's base (311 rows x 3
+    modes) is off it too."""
+    dev = require_cuda()
+    _gpu_stage(dev, 52, 3, 7, "nlms", 300, n_batch=n_batch, sps=1, n_start=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("modes,n_taps", [(1, 7), (1, 16), (1, 32), (2, 15), (3, 7),
+                                          (3, 16), (4, 16), (8, 7), (8, 16), (8, 32)])
+def test_kernel_instances_on_gpu(modes, n_taps):
+    """Every template instance: modes 1-2 with width <= 32, modes 3-4 with
+    width <= 64, up to 8 modes and 256 window lanes."""
+    dev = require_cuda()
+    _gpu_stage(dev, 53 + modes + n_taps, modes, n_taps, "lms", 300, n_batch=2,
+               mu=1e-3 / modes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alg", ["lms", "nlms"])
+def test_kernel_argmin_slicer_on_gpu(alg):
+    """Decisions by the argmin over an 8-PSK constellation after n_train."""
+    dev = require_cuda()
+    _gpu_stage(dev, 54, 2, 15, alg, 600, const=PSK8, n_train=200)

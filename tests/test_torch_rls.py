@@ -33,7 +33,14 @@ from opticommpy_torch.convert import (  # noqa: E402
 from opticommpy_torch.dsp import equalization as teq  # noqa: E402
 from opticommpy_torch.kernels import rls  # noqa: E402
 
-from _torch_parity import mixed_polmux, norm_qam, require_cuda, to_np  # noqa: E402
+from _torch_parity import (  # noqa: E402
+    mixed_polmux,
+    norm_qam,
+    padded_modes,
+    require_cuda,
+    spike_taps,
+    to_np,
+)
 
 Y_ATOL, H_ATOL, SD_ATOL = 2e-4, 1e-4, 1e-3
 MULTI_ATOL = 3e-4
@@ -306,3 +313,106 @@ def test_config_lambda_reaches_the_kernel():
     with mock.patch.object(rls, "rls_stage_batch", wraps=rls.rls_stage_batch) as k5:
         teq.mimo_adapt_equalizer(torch.as_tensor(sig), cfg, symb_ref=torch.as_tensor(sym))
     assert k5.call_args.args[6] == 0.995
+
+
+def _gpu_rls(dev, seed, modes, n_taps, alg, n_sym, *, const=None, n_batch=1, sps=2,
+             n_start=0, lam=0.99, single=False, sd_scale=1.0):
+    """K5 (K4 with ``single``) against the plain version on the card, one
+    pass of ``n_sym`` symbols from symbol ``n_start`` with Sd0 = ``sd_scale``
+    I: y within 2e-4, H within 1e-3 and Sd within 1e-3 of its largest entry
+    (chip_smoke.py's pins). Returns the kernel's (y, H, Sd) and the
+    arguments."""
+    const = norm_qam(16) if const is None else const
+    sig, sym = padded_modes(seed, n_batch, n_start + n_sym, modes, n_taps, sps, const)
+    sd0 = sd_scale * np.broadcast_to(np.eye(n_taps, dtype=np.complex64),
+                                     (n_batch, modes, n_taps, n_taps))
+    args = tuple(torch.as_tensor(a, device=dev) for a in (
+        sig, sym[:, n_start:], spike_taps(n_batch, modes, n_taps), sd0))
+    args += (const, alg, lam, sps, n_taps, n_start, n_sym)
+    if single:
+        before = rls.launches
+        out = rls.rls_stage(*(a[0] for a in args[:4]), *args[4:])
+        out = tuple(o[None] for o in out)
+        assert rls.launches == before + 1
+    else:
+        before = rls.batch_launches
+        out = rls.rls_stage_batch(*args)
+        assert rls.batch_launches == before + 1
+    y_p, h_p, sd_p = rls.rls_stage_plain(*args)
+    torch.cuda.synchronize()
+    y_k, h_k, sd_k = out
+    assert y_k.shape == (n_batch, n_sym, modes) and bool(torch.isfinite(y_k).all())
+    if n_sym:
+        assert float((y_k - y_p).abs().max()) < Y_ATOL
+    assert float((h_k - h_p).abs().max()) < 1e-3
+    assert float((sd_k - sd_p).abs().max() / sd_p.abs().max()) < SD_ATOL
+    return out, args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["0", "1", "chunk-1", "chunk", "chunk+1"])
+def test_rls_kernel_chunk_edges_on_gpu(case):
+    """Passes of 0, 1 and about one staged chunk of symbols."""
+    dev = require_cuda()
+    chunk = rls.chunk_symbols(2, 15, 2)
+    n_sym = {"0": 0, "1": 1, "chunk-1": chunk - 1, "chunk": chunk,
+             "chunk+1": chunk + 1}[case]
+    _gpu_rls(dev, 60, 2, 15, "rls", n_sym)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_batch", [1, 2])
+def test_rls_kernel_unaligned_start_on_gpu(n_batch):
+    """n_start > 0 with a start offset (n_start * sps * modes = 3 values) off
+    16-byte alignment; at B = 2 the second signal's base (311 rows x 3
+    modes) is off it too."""
+    dev = require_cuda()
+    _gpu_rls(dev, 61, 3, 7, "rls", 300, n_batch=n_batch, sps=1, n_start=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("modes,n_taps", [(1, 7), (1, 16), (1, 32), (2, 15), (3, 7),
+                                          (3, 16), (4, 16), (4, 32), (8, 7), (8, 16),
+                                          (8, 32)])
+def test_rls_kernel_instances_on_gpu(modes, n_taps):
+    """Every template instance: taps padded to 8, 16 or 32, up to 2 or up to
+    8 modes, including the 8-mode x 32-tap corner (64 KB of Sd).
+
+    Sd0 = 0.01 I: from Sd0 = I the reference's per-input-mode RLS applies up
+    to one full correction per input mode each symbol, so at 8 modes and 16
+    or more taps it diverges (|y| in the hundreds after 200 symbols), and a
+    1e-7 relative change of the input then moves y by more than the pins
+    (plain version on the CPU: 6.7e-4 at 8 x 16, 2e-2 at 8 x 32); from 0.01
+    I the same change moves y by ~1e-6 at every shape here."""
+    dev = require_cuda()
+    _gpu_rls(dev, 62 + modes + n_taps, modes, n_taps, "rls", 200, n_batch=2, sd_scale=0.01)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [16, 64])
+def test_rls_kernel_grid_slicer_on_gpu(order):
+    """dd-rls on the quantized square-QAM slicer, 16-QAM and 64-QAM."""
+    dev = require_cuda()
+    const = norm_qam(order)
+    _gpu_rls(dev, 63, 2, 15, "dd-rls", 600, const=const, n_batch=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alg", ["rls", "dd-rls"])
+def test_rls_kernel_b11_bit_identical_to_b1_on_gpu(alg):
+    """K5 at B = 11: each signal equals K5 on it alone (B = 1) bit for bit."""
+    dev = require_cuda()
+    (y_b, h_b, sd_b), args = _gpu_rls(dev, 64, 2, 15, alg, 600, n_batch=11)
+    for b in range(11):
+        y_1, h_1, sd_1 = rls.rls_stage_batch(*(a[b:b + 1] for a in args[:4]), *args[4:])
+        assert torch.equal(y_1[0], y_b[b]) and torch.equal(h_1[0], h_b[b])
+        assert torch.equal(sd_1[0], sd_b[b])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("modes,n_taps", [(2, 15), (1, 7), (8, 32)])
+def test_argmin_rls_kernel_instances_on_gpu(modes, n_taps):
+    """K4: dd-rls on the argmin slicer over 8-PSK, one signal (Sd0 = 0.01 I,
+    as for the instances of K5)."""
+    dev = require_cuda()
+    _gpu_rls(dev, 65, modes, n_taps, "dd-rls", 400, const=PSK8, single=True, sd_scale=0.01)
