@@ -60,7 +60,8 @@ Phases:
       K6 (K6 1 launch, K2 3, K1 1); BER <= 2 x JAX + 1e-4 and GMI >= JAX -
       0.05 per polarization; run twice (bit-identity printed); K6 against
       its plain version on the input it got there (~131,100 x 2 samples) and
-      timed on it; the same signal without clock recovery as the control;
+      timed on it (cycles per input sample at the SM clock read after the
+      window); the same signal without clock recovery as the control;
    B. channel k of the WDM receiver at its own offset -200 + 40 k ppm
       through ``coherent_dsp_chain_batch`` with feedforward clock recovery
       (K3 3, K1 1, K6 none); the clock estimates printed; every channel
@@ -112,7 +113,8 @@ Phases:
    15 / 5 taps, the real instance) as DFE and FFE, a signal alone against
    the batch, the PAM4 input on the complex instance against the real one,
    and on the complex instance 16-QAM fulltime (per-axis quantizer) and
-   8-PSK (argmin) at 8 x 4,096; K14, the Volterra recurrence, at
+   8-PSK (argmin) at 8 x 4,096 (cycles per symbol of the DFE at the SM clock
+   read after its window); K14, the Volterra recurrence, at
    bench_dsp.py's shape (B = 8 x 16,384 symbols, SpS 2, 13 / 7 / 5 taps,
    mu 1e-3, nTrain 4000) at order 2 and 3, BER 0 after nTrain required.
 12. path H, IM-DD serving at the JAX package's bench size
@@ -126,9 +128,13 @@ Phases:
    JAX + 1e-4 (numbers from ``tools/jax_imdd_reference.py``), and the chain
    on the first 16,384 symbols of every link on CUDA against the same on
    the CPU (plain version); warm ms and Msym/s at B = 8 and, time only, at
-   B = 132; then the links' SpS-2 samples through ``volterra_kernel``
-   (order 3, 13 / 7 / 5; K14 1 launch), BER printed, the kernel against
-   the plain version on the CPU on a 4,096-symbol prefix.
+   B = 132; K13 alone on the arguments the chain gives it (8 x 65,536
+   symbols, DFE and FFE: the shape the path launches), its time, cycles
+   per symbol and bound, and every output against its plain version on
+   the card on the same arguments, bit for bit; then the links' SpS-2 samples through
+   ``volterra_kernel`` (order 3, 13 / 7 / 5; K14 1 launch), BER printed,
+   the kernel against the plain version on the CPU on a 4,096-symbol
+   prefix.
 13. the time of every phase; then the kernels JSON line (K1-K14, each with
    its bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s),
    and last the ``{"ok": true, "device": ...}`` line.
@@ -867,11 +873,13 @@ def phase_clock_pll_kernels(dev, const, n_cmp=16384, n_pll=65536):
         e_err = float((eo_k - eo_p).abs().max())
         t_err = float((tv_k - tv_p).abs().max())
         same_n = bool(torch.equal(n_k, n_p))
+        exact = bool(torch.equal(eo_k, eo_p)) and bool(torch.equal(tv_k, tv_p)) and same_n
         ms = _cuda_ms(lambda: gardner.gardner_records(x, 2e-3, 1e-5, nyquist, n_out), 3)
         print(f"K6 gardner ({'nyquist' if nyquist else 'classic'}, {x.shape[0]} x 2 samples, "
               f"250 ppm): max |eo err| {e_err:.3e}, max |t err| {t_err:.3e}, n_final equal "
-              f"{same_n} {n_k.tolist()}, kernel {ms:.3f} ms, plain {plain_s * 1e3:.1f} ms")
-        _check(e_err < CR_ATOL and t_err < CR_ATOL and same_n,
+              f"{same_n} {n_k.tolist()}, bit for bit {exact}, kernel {ms:.3f} ms, plain "
+              f"{plain_s * 1e3:.1f} ms")
+        _check(e_err < CR_ATOL and t_err < CR_ATOL and same_n and exact,
                f"Gardner kernel disagrees with plain (nyquist={nyquist})")
         worst = max(worst, e_err, t_err)
     # a stuff two iterations after a backstep (high loop gain, short input)
@@ -1011,16 +1019,20 @@ def run_cr_path_a(dev, res, n_train=12000):
     e_err = float((eo_k - eo_p).abs().max())
     t_err = float((tv_k - tv_p).abs().max())
     same_n = bool(torch.equal(n_k, n_p))
+    exact = bool(torch.equal(eo_k, eo_p)) and bool(torch.equal(tv_k, tv_p)) and same_n
     ms = _cuda_ms(lambda: gardner.gardner_records(*args), 3)
+    sm_mhz = _sm_clock_mhz()
     n_in = args[0].shape[0]
     print(f"K6 gardner on path A's input ({n_in} x 2 samples, nyquist): max |eo err| "
           f"{e_err:.3e}, max |t err| {t_err:.3e}, n_final equal {same_n} {n_k.tolist()}, "
-          f"kernel {ms:.3f} ms ({n_in / ms / 1e3:.3f} Msample/s per mode), plain "
-          f"{plain_s * 1e3:.1f} ms")
-    _check(e_err < CR_ATOL and t_err < CR_ATOL and same_n,
+          f"bit for bit {exact}, kernel {ms:.3f} ms ({n_in / ms / 1e3:.3f} Msample/s per "
+          f"mode, {ms * 1e-3 / n_in * sm_mhz * 1e6:.1f} cycles per sample at {sm_mhz:.0f} "
+          f"MHz), plain {plain_s * 1e3:.1f} ms")
+    _check(e_err < CR_ATOL and t_err < CR_ATOL and same_n and exact,
            "Gardner kernel disagrees with plain on path A's input")
     k6_report = dict(max_abs_err=max(e_err, t_err), ms=ms, plain_ms=plain_s * 1e3,
-                     cost=_gardner_cost(n_in, args[4], 2, int(n_k.sum())))
+                     cost=_gardner_cost(n_in, args[4], 2, int(n_k.sum())), n_in=n_in,
+                     sm_clock_mhz=sm_mhz)
     n_sym = d_cr.shape[0]
     disc = n_train + 2000
     ber, gmi, evm = _scores(y, d_cr, disc)
@@ -1999,6 +2011,7 @@ def phase_imdd_kernels(dev, n_pam=16384, n_cplx=4096, n_vol=16384):
     from opticommpy_torch.ops.signal import pnorm
 
     report = {}
+    ms_clock = {}  # SM clock after each timed window
 
     def prepared(x, s, n_ff, const):
         sig_pad, ref, n_out, _ = dfe.prepare(torch.as_tensor(x, device=dev),
@@ -2016,6 +2029,8 @@ def phase_imdd_kernels(dev, n_pam=16384, n_cplx=4096, n_vol=16384):
         same = all(bool(torch.equal(a, b)) for a, b in zip(out_k, out_p))
         err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
         ms = _cuda_ms(lambda: dfe.dfe_run(sig_pad, ref, *args), 5) if timed else None
+        if timed:
+            ms_clock[name] = _sm_clock_mhz()
         print(f"K13 {name} ({sig_pad.shape[0]} x {ref.shape[1]} symbols, {n_ff}/"
               f"{n_fb if use_fb else 0} taps): equal to plain {same} (max |diff| {err:.3e}), "
               f"plain {plain_s * 1e3:.1f} ms" + (f", kernel {ms:.3f} ms" if timed else ""))
@@ -2057,7 +2072,8 @@ def phase_imdd_kernels(dev, n_pam=16384, n_cplx=4096, n_vol=16384):
                  for a, b in zip(out, out_c))
     print(f"K13 PAM4 on the complex instance: real parts equal to the real instance {same_c}")
     _check(same_c, "K13: the complex instance disagrees with the real one at PAM")
-    report["dfe"] = _with_bound(dfe_entry, *dfe_cost)
+    report["dfe"] = _with_cycles(_with_bound(dfe_entry, *dfe_cost), n_pam,
+                                 ms_clock["DFE PAM4 real"])
 
     # K14 at bench_dsp.py:350-367's shape: B = 8 x 16,384 symbols, SpS 2,
     # 13 / 7 / 5 taps, mu 1e-3, nTrain 4000
@@ -2134,6 +2150,8 @@ def run_imdd_path_h(dev, n_links=8, n_bits=2**17, n_cmp=16384, n_wide=132):
     (bench.run_imdd_chain): 8 links through imdd_dsp_chain_batch with the
     DFE (K13 1 launch) and the FFE (K13 1 launch), then the same links'
     SpS-2 samples through volterra_kernel (K14 1 launch)."""
+    from unittest import mock
+
     from opticommpy_torch.dsp.equalization import VolterraConfig
     from opticommpy_torch.kernels import dfe, volterra
     from opticommpy_torch.ops.signal import row_mean
@@ -2156,6 +2174,30 @@ def run_imdd_path_h(dev, n_links=8, n_bits=2**17, n_cmp=16384, n_wide=132):
                f"path H {eq}: output {tuple(y.shape)} not finite or misplaced")
         rows = _imdd_scores(y, mse, ref_b, cfg.nTrain)
         ms = _cuda_ms(lambda: imdd_dsp_chain_batch(i_b, ref_b, cfg), 3)
+        # K13 alone on the arguments the chain gives it (the shape the path
+        # launches); these launches are not the path's
+        with mock.patch.object(dfe, "dfe_run", wraps=dfe.dfe_run) as k13:
+            imdd_dsp_chain_batch(i_b, ref_b, cfg)
+        k_args = k13.call_args.args
+        k_ms = _cuda_ms(lambda: dfe.dfe_run(*k_args), 3)
+        k_mhz = _sm_clock_mhz()
+        k_cost = _dfe_cost(n_links, k_args[5], cfg.nTapsFF, cfg.nTapsFB if eq == "dfe" else 0,
+                           1, False)
+        k13_alone = _with_cycles(dict(ms=k_ms, n_batch=n_links, n_sym=k_args[5]), k_args[5],
+                                 k_mhz)
+        k13_alone["bound_ms"], k13_alone["bound_by"] = _bound(*k_cost)
+        # and against its plain version on the card on the same arguments,
+        # every output bit for bit
+        out_k = dfe.dfe_run(*k_args)
+        out_p, k_plain_s = _wall(lambda: dfe.dfe_pass_plain(*k_args))
+        k_same = all(bool(torch.equal(a, b)) for a, b in zip(out_k, out_p))
+        k13_alone["max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
+        k13_alone["plain_ms"] = k_plain_s * 1e3
+        print(f"path H {eq}: K13 alone on the chain's {n_links} x {k_args[5]} symbols "
+              f"{k_ms:.3f} ms ({k13_alone['cycles_per_symbol']:.1f} cycles per symbol at "
+              f"{k_mhz:.0f} MHz; bound {k13_alone['bound_ms']:.6f} ms); equal to plain "
+              f"{k_same} (max |diff| {k13_alone['max_abs_err']:.3e}, plain {k_plain_s:.1f} s)")
+        _check(k_same, f"path H {eq}: K13 disagrees with its plain version at the path's shape")
         print(f"path H {eq}: launches K13 {counts['dfe']}; first call {first_s * 1e3:.1f} ms, "
               f"warm {ms:.3f} ms = {n_links * n_sym / ms / 1e3:.4f} Msym/s aggregate "
               f"(B = {n_links})")
@@ -2180,7 +2222,7 @@ def run_imdd_path_h(dev, n_links=8, n_bits=2**17, n_cmp=16384, n_wide=132):
               f"bit for bit {bool(torch.equal(y_g.cpu(), y_c))}")
         _check(flips == 0 and d < IMDD_Y_ATOL,
                f"path H {eq}: the CPU chain decides otherwise ({flips}, {d})")
-        out[eq] = dict(counts=counts, ms=ms, rows=rows)
+        out[eq] = dict(counts=counts, ms=ms, rows=rows, k13=k13_alone)
     # the serving batch at one link per SM: time only
     wide = i_b.repeat(-(-n_wide // n_links), 1)[:n_wide].contiguous()
     wide_ref = ref_b.repeat(-(-n_wide // n_links), 1)[:n_wide].contiguous()
@@ -2306,9 +2348,9 @@ def main():
     t0 = time.perf_counter()
     path_a = run_cr_path_a(dev, res)
     k6 = path_a["k6"]
-    report["gardner"] = _with_bound(
+    report["gardner"] = _with_cycles(_with_bound(
         dict(max_abs_err=max(k6["max_abs_err"], report.pop("gardner_short_err")), ms=k6["ms"],
-             plain_ms=k6["plain_ms"]), *k6["cost"])
+             plain_ms=k6["plain_ms"]), *k6["cost"]), k6["n_in"], k6["sm_clock_mhz"])
     phase_s["path A"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     sig_b, ref_b = wdm.pop("received")
@@ -2390,7 +2432,8 @@ def main():
              launches=path_g["counts"]["lift_iter"], **report["lift_iter"]),
         dict(name="dfe", route="cuda", source="opticommpy_torch/csrc/dfe.cu",
              replaces="opticommpy_tpu/kernels/dfe_pallas.py:160",
-             launches=path_h["dfe"]["counts"]["dfe"], **report["dfe"]),
+             launches=path_h["dfe"]["counts"]["dfe"], **report["dfe"],
+             path_h={eq: path_h[eq]["k13"] for eq in ("dfe", "ffe")}),
         dict(name="volterra", route="cuda", source="opticommpy_torch/csrc/volterra.cu",
              replaces="opticommpy_tpu/kernels/volterra_pallas.py:115",
              launches=path_h["vol_counts"]["volterra"], **report["volterra"]),

@@ -1,5 +1,5 @@
 // Chunked staging of a per-symbol recurrence's inputs into shared memory,
-// shared by csrc/mimo_eq.cu and csrc/rls.cu.
+// shared by csrc/mimo_eq.cu, csrc/rls.cu, csrc/dfe.cu and csrc/gardner.cu.
 //
 // A recurrence reads, per symbol, a window of the padded signal and a
 // reference; each signal's windows of symbols k0 ... k0 + n - 1 are one
@@ -32,7 +32,8 @@ __device__ __forceinline__ void cp8(float2* dst, const float2* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
 }
 
-__device__ __forceinline__ void cp16(float2* dst, const float2* src) {
+template <typename T>
+__device__ __forceinline__ void cp16(T* dst, const T* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
@@ -63,6 +64,44 @@ __device__ __forceinline__ void issue(float2* dst, const float2* src, int n) {
       cp8(dst + e, base + e);
     else if (hi_ok)
       cp8(dst + e + 1, base + e + 1);
+  }
+}
+
+// The same for runs of float or float2 values (csrc/dfe.cu's real and
+// complex instances): a float run starts on any 4-byte boundary, so it lies
+// 0-3 values above the 16-byte boundary below it.
+__device__ __forceinline__ void cp_value(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_value(float2* dst, const float2* src) {
+  cp8(dst, src);
+}
+
+// Values of T between src and the 16-byte boundary at or below it.
+template <typename T>
+__device__ __forceinline__ int misalign_of(const T* src) {
+  return (int)((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T));
+}
+
+// Issue the copy of src[0, n) to dst[misalign_of(src) + 0, n); dst is
+// 16-byte aligned.  Every thread of the CTA calls it with the same arguments.
+template <typename T>
+__device__ __forceinline__ void issue_values(T* dst, const T* src, int n) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int mis = misalign_of(src);
+  const T* base = src - mis;
+  const int total = mis + n;
+  const int pieces = (total + kPer - 1) / kPer;
+  for (int u = threadIdx.x; u < pieces; u += blockDim.x) {
+    const int e = u * kPer;
+    if (e >= mis && e + kPer <= total) {
+      cp16(dst + e, base + e);
+    } else {
+      const int hi = min(e + kPer, total);
+      for (int v = max(e, mis); v < hi; ++v) cp_value(dst + v, base + v);
+    }
   }
 }
 

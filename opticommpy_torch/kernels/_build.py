@@ -9,6 +9,9 @@ first use into ``build/torch_kernels/`` at the root of the checkout, named
 by a hash of the sources and headers so that an edited file is never served
 by a stale build. Nothing here runs at import time: the CPU tests import
 every module of the package on a machine with no CUDA toolkit.
+
+The wrappers' shared launch helpers live here too: pointers, the current
+stream, error checks and the device-resident constellation tables.
 """
 
 import ctypes
@@ -19,7 +22,9 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "check", "ptr", "stream_ptr"]
+import numpy as np
+
+__all__ = ["load_library", "check", "ptr", "stream_ptr", "device_tables"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -55,6 +60,8 @@ _SIGNATURES = {
 }
 
 _lib = None
+_TABLES_MAX = 64  # cached device tables kept before the cache is emptied
+_tables = {}
 build_info = {}  # seconds and compiler log of the build this process made
 
 
@@ -130,3 +137,28 @@ def stream_ptr(device):
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def device_tables(const, aux, device):
+    """(c_re, c_im, aux) float32 tensors on ``device``, uploaded once per
+    constellation, aux vector and device, for the kernels' wrappers.
+
+    A host-to-device copy from pageable NumPy memory waits for the stream,
+    so uploading the tables on every call would keep a chain's host work
+    from overlapping the kernel before it. The tensors are shared between
+    calls and must not be written.
+    """
+    import torch
+
+    const = np.ascontiguousarray(const, np.complex64)
+    aux = np.ascontiguousarray(np.zeros(0) if aux is None else aux, np.float32)
+    device = torch.device(device)
+    key = (const.tobytes(), aux.tobytes(), str(device))
+    hit = _tables.get(key)
+    if hit is None:
+        if len(_tables) >= _TABLES_MAX:
+            _tables.clear()
+        hit = _tables[key] = (torch.as_tensor(const.real.copy(), device=device),
+                              torch.as_tensor(const.imag.copy(), device=device),
+                              torch.as_tensor(aux, device=device))
+    return hit

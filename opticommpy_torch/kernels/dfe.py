@@ -36,6 +36,7 @@ import torch
 
 from opticommpy_torch.comm.modulation import norm_const
 from opticommpy_torch.kernels import _build
+from opticommpy_torch.kernels._build import device_tables
 from opticommpy_torch.kernels.bps import _square_qam_levels
 from opticommpy_torch.ops.signal import pnorm_rows, tree_sum
 from opticommpy_torch.utils.rng import as_device_tensor
@@ -221,8 +222,7 @@ def _dfe_cuda(sig_pad, ref, const, f0, b0, n_sym, sps, mu, n_train, fulltime, us
         raise ValueError(f"dfe: at most {_MAX_TABLE} constellation points")
     lib = _build.load_library()
     dev = sig_pad.device
-    c = torch.as_tensor(const, device=dev)
-    c_re, c_im = c.real.contiguous(), c.imag.contiguous()
+    c_re, c_im, _ = device_tables(const, None, dev)
     lo, step, n_lev = levels if levels is not None else (0.0, 1.0, 1)
     y = torch.empty((n_b, n_sym), dtype=dtype, device=dev)
     mse = torch.empty((n_b, n_sym), dtype=torch.float32, device=dev)

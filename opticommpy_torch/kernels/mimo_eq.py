@@ -31,11 +31,12 @@ import numpy as np
 import torch
 
 from opticommpy_torch.kernels import _build
+from opticommpy_torch.kernels._build import device_tables
 from opticommpy_torch.kernels.bps import _quantize, _square_qam_levels
 
 __all__ = ["mimo_eq_kernel", "mimo_eq_kernel_batch", "mimo_eq_stage",
            "mimo_eq_stage_batch", "mimo_eq_stage_plain",
-           "mimo_eq_stage_batch_plain", "stage_aux", "device_tables",
+           "mimo_eq_stage_batch_plain", "stage_aux",
            "chunk_symbols", "launches", "batch_launches"]
 
 launches = 0  # K2 launches made by mimo_eq_stage on CUDA tensors
@@ -45,8 +46,6 @@ _ALG_CODE = {"lms": 0, "nlms": 1, "cma": 2, "rde": 3, "da-rde": 4}
 # limits of csrc/mimo_eq.cu: register tiles up to 8 modes x 256 lanes,
 # constellation and radii tables of 1024 entries in shared memory
 _MAX_MODES, _MAX_WIDTH, _MAX_TABLE = 8, 256, 1024
-_TABLES_MAX = 64  # cached device tables kept before the cache is emptied
-_tables = {}
 _REF_NEEDED = dict.fromkeys(("lms", "nlms", "da-rde"),
                             "symb_ref is required for alg='lms'/'nlms'/'da-rde'")
 
@@ -59,29 +58,6 @@ def stage_aux(alg, const_np):
     if alg == "rde":
         return np.unique(np.round(np.abs(const_np), 6)).astype(np.float32)
     return np.zeros(1, np.float32)
-
-
-def device_tables(const, aux, device):
-    """(c_re, c_im, aux) float32 tensors on ``device``, uploaded once per
-    constellation, aux vector and device.
-
-    A host-to-device copy from pageable NumPy memory waits for the stream,
-    so uploading the tables on every call would keep a chain's host work
-    from overlapping the kernel before it. The tensors are shared between
-    calls and must not be written.
-    """
-    const = np.ascontiguousarray(const, np.complex64)
-    aux = np.ascontiguousarray(np.zeros(0) if aux is None else aux, np.float32)
-    device = torch.device(device)
-    key = (const.tobytes(), aux.tobytes(), str(device))
-    hit = _tables.get(key)
-    if hit is None:
-        if len(_tables) >= _TABLES_MAX:
-            _tables.clear()
-        hit = _tables[key] = (torch.as_tensor(const.real.copy(), device=device),
-                              torch.as_tensor(const.imag.copy(), device=device),
-                              torch.as_tensor(aux, device=device))
-    return hit
 
 
 def chunk_symbols(modes, n_taps, sps):

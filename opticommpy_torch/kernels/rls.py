@@ -30,9 +30,9 @@ import numpy as np
 import torch
 
 from opticommpy_torch.kernels import _build
+from opticommpy_torch.kernels._build import device_tables
 from opticommpy_torch.kernels.bps import _quantize, _square_qam_levels
 from opticommpy_torch.kernels.mimo_eq import _kernel_inputs as _pad_inputs
-from opticommpy_torch.kernels.mimo_eq import device_tables
 
 __all__ = ["mimo_rls_kernel", "mimo_rls_kernel_batch", "rls_stage",
            "rls_stage_batch", "rls_stage_plain", "chunk_symbols", "launches",

@@ -400,3 +400,75 @@ def test_gardner_kernel_backstep_then_stuff_on_gpu():
     torch.cuda.synchronize()
     assert torch.equal(n_k.cpu(), n_p.cpu())
     assert torch.equal(eo_k, eo_p) and torch.equal(tv_k, tv_p)
+
+
+# csrc/gardner.cu stages its input 1024 samples at a time (kChunk)
+GARDNER_CHUNK = 1024
+
+
+def _k6_equals_plain(x, kp, ki, nyquist, n_out):
+    """K6 against its plain version on the same CUDA tensor: equal outputs
+    (NaN where the plain version has NaN) and equal final pointers."""
+    before = gardner.launches
+    out_k = gardner.gardner_records(x, kp, ki, nyquist, n_out)
+    assert gardner.launches == before + 1
+    out_p = gardner.gardner_plain(x, kp, ki, nyquist, n_out)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    return out_k
+
+
+def _noise_columns(seeds, n_in):
+    """(n_in, len(seeds)) complex64 Gaussian noise, one seed per mode."""
+    cols = []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        cols.append(rng.normal(size=n_in) + 1j * rng.normal(size=n_in))
+    return np.stack(cols, axis=1).astype(np.complex64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_in, modes, nyquist", [
+    (5, 1, False), (GARDNER_CHUNK - 1, 2, True), (GARDNER_CHUNK, 2, False),
+    (GARDNER_CHUNK + 1, 4, True), (2 * GARDNER_CHUNK + 1, 1, False),
+    (3 * GARDNER_CHUNK + 3, 2, True)])
+def test_gardner_kernel_chunk_edges_on_gpu(n_in, modes, nyquist):
+    """Inputs that end before, on and after a staged chunk, 1-4 modes, both
+    TEDs, at 250 ppm."""
+    dev = require_cuda()
+    rng = np.random.default_rng(40 + n_in)
+    waves = [np.asarray(_qpsk_wave(rng, n_in // 2 + 8))[:n_in] for _ in range(modes)]
+    x = torch.as_tensor(np.stack(waves, axis=1).astype(np.complex64), device=dev)
+    x = tsig.clock_sampling_interp(x, 1.0, 1.0 / (1 + 250e-6))[:n_in].contiguous()
+    n_out = max(3, int((1 - 5e-4) * n_in))
+    _, _, n_k = _k6_equals_plain(x, 2e-3, 1e-5, nyquist, n_out)
+    assert n_k.shape == (modes,)
+
+
+@pytest.mark.gpu
+def test_gardner_kernel_skip_and_stuff_across_a_ring_slot_on_gpu():
+    """At a high loop gain on noise the NCO skips and stuffs often. On these
+    four columns (seeds found with the plain loop) a skip (seeds 5, 15) and
+    a stuff (seeds 30, 9) fall where the sample entering the window, x[m+2],
+    is the first or last of a staged chunk (m + 2 = 1024, 1023; 3072, 3071)."""
+    dev = require_cuda()
+    x = torch.as_tensor(_noise_columns((5, 30, 15, 9), 3100), device=dev)
+    eo, tv, n_k = _k6_equals_plain(x, 0.2, 0.0, False, 3099)
+    assert torch.isfinite(eo).all() and torch.isfinite(tv).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nyquist", [False, True])
+def test_gardner_kernel_non_finite_input_stops_at_max_iters_on_gpu(nyquist):
+    """A non-finite input, with the iteration cap lowered to 1500 for both
+    versions so that it falls inside the second staged chunk: both stop at
+    the cap, short of the end of the input, with equal records."""
+    dev = require_cuda()
+    x = _noise_columns((50, 51), 3000) * 0.3
+    x[600, 0] = np.inf
+    x[900, 1] = np.nan
+    x = torch.as_tensor(x, device=dev)
+    with mock.patch.object(gardner, "max_iters", return_value=1500):
+        _, _, n_k = _k6_equals_plain(x, 2e-3, 1e-5, nyquist, 2990)
+    assert int(n_k.max()) < 2989

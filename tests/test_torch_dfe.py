@@ -18,6 +18,7 @@ Tolerances:
   complex instance: equal bit for bit.
 """
 
+import contextlib
 from unittest import mock
 
 import jax.numpy as jnp
@@ -219,11 +220,72 @@ def test_dfe_plain_rejects_bad_shapes():
                            1, 1e-3, 5, False)
 
 
+def test_dfe_wrapper_takes_the_cached_device_constellation():
+    """K13's wrapper takes its constellation from the device-resident cache
+    (``_build.device_tables``, one upload per constellation and device):
+    two calls with one constellation hand the kernel the same tensors,
+    another constellation other ones. Driven on CPU tensors with the
+    library, the stream and the device context stubbed."""
+    seen = []
+
+    class _Lib:
+        @staticmethod
+        def dfe_launch(*args):
+            seen.append((args[7].value, args[8].value))  # c_re, c_im pointers
+            return 0
+
+    x, s = _pam_isi(seed=8, n=64)
+    sig_pad, ref, n_out, _ = k13.prepare(torch.as_tensor(x), torch.as_tensor(s), 15, 1,
+                                         k13.norm_const(4, "pam"))
+    f0, b0 = torch.zeros((1, 15)), torch.zeros((1, 5))
+    consts = (k13.norm_const(4, "pam"), k13.norm_const(4, "pam").copy(), k13.norm_const(8, "pam"))
+    with mock.patch.object(k13._build, "load_library", return_value=_Lib()), \
+            mock.patch.object(k13._build, "stream_ptr", return_value=None), \
+            mock.patch.object(torch.cuda, "device", return_value=contextlib.nullcontext()):
+        for const in consts:
+            k13._dfe_cuda(sig_pad, ref, const, f0, b0, n_out, 1, 1e-3, 10, False, True)
+    assert seen[0] == seen[1] and seen[2][0] != seen[0][0]
+    c_re, c_im, _ = k13._build.device_tables(consts[0], None, "cpu")
+    assert seen[0] == (c_re.data_ptr(), c_im.data_ptr())
+    np.testing.assert_array_equal(c_re.numpy(), consts[0].real)
+
+
+def test_dfe_wrapper_slicer_codes():
+    """The wrapper hands ``dfe_launch`` slicer code 1 (PAM levels, real
+    instance) for PAM4, 2 (square grid, complex instance) for 16-QAM and 0
+    (argmin) for 8-PSK, with the grid's lo, step and top; every grid's
+    quotient is the kernel's true division. Driven on CPU tensors with the
+    library, the stream and the device context stubbed."""
+    seen = []
+
+    class _Lib:
+        @staticmethod
+        def dfe_launch(*args):
+            seen.append((args[1], args[10], args[11], args[12], args[13]))
+            return 0
+
+    x, s = _pam_isi(seed=9, n=64)
+    consts = (k13.norm_const(4, "pam"), k13.norm_const(16, "qam"), PSK8)
+    with mock.patch.object(k13._build, "load_library", return_value=_Lib()), \
+            mock.patch.object(k13._build, "stream_ptr", return_value=None), \
+            mock.patch.object(torch.cuda, "device", return_value=contextlib.nullcontext()):
+        for const in consts:
+            sig_pad, ref, n_out, _ = k13.prepare(torch.as_tensor(x), torch.as_tensor(s), 15, 1,
+                                                 const)
+            f0 = sig_pad.new_zeros((1, 15))
+            b0 = sig_pad.new_zeros((1, 5))
+            k13._dfe_cuda(sig_pad, ref, const, f0, b0, n_out, 1, 1e-3, 10, False, True)
+    assert [(cplx, code) for cplx, code, *_ in seen] == [(0, 1), (1, 2), (1, 0)]
+    for (_, _, lo, step, top), const in zip(seen[:2], consts):
+        _, (lo_c, step_c, levels) = k13.slicer_of(const)
+        assert (lo, step, top) == (lo_c, step_c, levels - 1)
+
+
 # -- the kernel on the card --------------------------------------------------
 
-def _gpu_case(dev, const, cplx, n_b=4, n=3000, n_ff=15, n_fb=5, sps=1, seed=0):
+def _gpu_case(dev, const, cplx, n_b=4, n=3000, n_ff=15, n_fb=5, sps=1, seed=0, extra=0):
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(n_b, (n - 1) * sps + n_ff))
+    x = rng.normal(size=(n_b, (n - 1) * sps + n_ff + extra))
     r = const[rng.integers(0, len(const), size=(n_b, n))]
     if cplx:
         x = x + 1j * rng.normal(size=x.shape)
@@ -271,3 +333,104 @@ def test_kernel_batch_equals_single_on_gpu():
     for a, b in zip(out_b, out_s):
         assert torch.equal(a[33:34], b)
     assert to_np(out_b[0]).std() > 0
+
+
+# csrc/dfe.cu stages up to 1024 symbols at a time (kChunkMax; fewer when
+# half a chunk holds them all); the edges below are those of 1024 and 2048
+DFE_CHUNK = 1024
+
+
+def _kernel_equals_plain(x, r, const, f0, b0, sps=1, n_train=600, fulltime=True, use_fb=True):
+    """K13 against its plain version on the same CUDA tensors, bit for bit;
+    returns the kernel's outputs."""
+    args = (const, f0, b0, r.shape[1], sps, 2e-3, n_train, fulltime, use_fb)
+    before = k13.launches
+    out_k = k13.dfe_run(x, r, *args)
+    assert k13.launches == before + 1
+    out_p = k13.dfe_pass_plain(x, r, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+    return out_k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_sym", [0, 1, DFE_CHUNK - 1, DFE_CHUNK, DFE_CHUNK + 1,
+                                   2 * DFE_CHUNK - 1, 2 * DFE_CHUNK + 1])
+def test_kernel_chunk_edges_on_gpu(n_sym):
+    dev = require_cuda()
+    const = k13.norm_const(4, "pam")
+    # at n_sym = 0 the plain version still cuts one window: give it n_ff samples
+    x, r, f0, b0 = _gpu_case(dev, const, False, n_b=2, n=n_sym, seed=20, extra=int(n_sym == 0))
+    out = _kernel_equals_plain(x, r, const, f0, b0)
+    assert out[0].shape == (2, n_sym)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_train", [700, DFE_CHUNK, 2 * DFE_CHUNK])
+def test_kernel_training_ends_in_or_on_a_chunk_on_gpu(n_train):
+    """The reference is staged only for chunks that train; training ends
+    inside a chunk or on its boundary (decision-directed after it)."""
+    dev = require_cuda()
+    const = k13.norm_const(4, "pam")
+    x, r, f0, b0 = _gpu_case(dev, const, False, n_b=3, n=2500, seed=21)
+    _kernel_equals_plain(x, r, const, f0, b0, n_train=n_train, fulltime=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("extra", [1, 2, 3])
+def test_kernel_unaligned_rows_on_gpu(extra, cplx):
+    """Rows of odd lengths: a float32 row starts 0, 4, 8 or 12 bytes past a
+    16-byte boundary, a complex64 row 0 or 8."""
+    dev = require_cuda()
+    const = k13.norm_const(16, "qam") if cplx else k13.norm_const(4, "pam")
+    x, r, f0, b0 = _gpu_case(dev, const, cplx, n_b=4, n=1500, seed=22, extra=extra)
+    _kernel_equals_plain(x, r, const, f0, b0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_b", [1, 8, 33, 132])
+def test_kernel_batch_equals_each_signal_alone_on_gpu(n_b):
+    dev = require_cuda()
+    const = k13.norm_const(4, "pam")
+    x, r, f0, b0 = _gpu_case(dev, const, False, n_b=n_b, n=1200, seed=23, extra=1)
+    out_b = _kernel_equals_plain(x, r, const, f0, b0)
+    for i in range(n_b):
+        one = k13.dfe_run(x[i:i + 1].contiguous(), r[i:i + 1].contiguous(), const,
+                          f0[i:i + 1], b0[i:i + 1], r.shape[1], 1, 2e-3, 600, True, True)
+        for a, b in zip(out_b, one):
+            assert torch.equal(a[i:i + 1], b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cplx, sps", [(True, 2), (False, 3)])
+def test_kernel_window_from_shared_memory_at_sps_above_one_on_gpu(cplx, sps):
+    dev = require_cuda()
+    const = k13.norm_const(16, "qam") if cplx else k13.norm_const(4, "pam")
+    x, r, f0, b0 = _gpu_case(dev, const, cplx, n_b=3, n=2100, n_ff=7, n_fb=3, sps=sps,
+                             seed=24, extra=1)
+    _kernel_equals_plain(x, r, const, f0, b0, sps=sps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("n_ff, n_fb", [(1, 0), (1, 16), (32, 0), (32, 16)])
+def test_kernel_tap_count_extremes_on_gpu(n_ff, n_fb, cplx):
+    dev = require_cuda()
+    const = k13.norm_const(16, "qam") if cplx else k13.norm_const(4, "pam")
+    x, r, f0, b0 = _gpu_case(dev, const, cplx, n_b=2, n=1500, n_ff=n_ff, n_fb=n_fb, seed=25)
+    _kernel_equals_plain(x, r, const, f0, b0, use_fb=n_fb > 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["real-levels", "psk8"])
+def test_kernel_argmin_slicer_on_gpu(case):
+    """The argmin slicer on the real instance (uneven real levels) and on
+    the complex one (8-PSK), across chunks."""
+    dev = require_cuda()
+    const = (np.array([-1.1, -0.3, 0.4, 1.2], np.complex64) if case == "real-levels" else PSK8)
+    assert k13.slicer_of(const)[0] == "argmin"
+    x, r, f0, b0 = _gpu_case(dev, const, case == "psk8", n_b=3, n=2100, n_ff=7, n_fb=3,
+                             seed=26)
+    _kernel_equals_plain(x, r, const, f0, b0, n_train=500, fulltime=False)

@@ -18,7 +18,7 @@ from opticommpy_tpu.dsp import equalization as jeq  # noqa: E402
 from opticommpy_tpu.kernels.mimo_pallas import mimo_eq_pallas  # noqa: E402
 from opticommpy_torch.convert import config_from_jax, taps_to_numpy  # noqa: E402
 from opticommpy_torch.dsp import equalization as teq  # noqa: E402
-from opticommpy_torch.kernels import mimo_eq  # noqa: E402
+from opticommpy_torch.kernels import _build, mimo_eq  # noqa: E402
 
 from _torch_parity import (  # noqa: E402
     mixed_polmux,
@@ -162,17 +162,17 @@ def test_device_tables_cached_per_constellation_and_device():
     qam = norm_qam(16)
     psk = np.exp(2j * np.pi * np.arange(8) / 8).astype(np.complex64)
     aux = mimo_eq.stage_aux("rde", qam)
-    first = mimo_eq.device_tables(qam, aux, "cpu")
-    again = mimo_eq.device_tables(qam.copy(), aux.copy(), torch.device("cpu"))
+    first = _build.device_tables(qam, aux, "cpu")
+    again = _build.device_tables(qam.copy(), aux.copy(), torch.device("cpu"))
     assert all(a is b for a, b in zip(first, again))
     np.testing.assert_array_equal(first[0].numpy(), qam.real)
     np.testing.assert_array_equal(first[1].numpy(), qam.imag)
     np.testing.assert_array_equal(first[2].numpy(), aux)
-    other = mimo_eq.device_tables(psk, aux, "cpu")
+    other = _build.device_tables(psk, aux, "cpu")
     assert other[0] is not first[0]
     np.testing.assert_array_equal(other[0].numpy(), psk.real)
-    assert mimo_eq.device_tables(qam, None, "cpu")[2] is not first[2]
-    meta = mimo_eq.device_tables(qam, aux, "meta")
+    assert _build.device_tables(qam, None, "cpu")[2] is not first[2]
+    meta = _build.device_tables(qam, aux, "meta")
     assert meta[0].device.type == "meta" and meta[0] is not first[0]
 
 
