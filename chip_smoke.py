@@ -19,8 +19,9 @@ Phases:
    Gardner loop, at 16,384 x 2 samples (Nyquist TED) and 4,096 x 2
    (classic), and on a short input where a stuff follows a backstep (and
    on path A's own input, phase 8); K7, the DD-PLL, at 65,536 symbols x 22
-   columns with a pilot every 32nd symbol, against the reference rule
-   ``carrier_recovery.ddpll``.
+   columns with a pilot every 32nd symbol, bit for bit against its plain
+   twin ``ddpll_plain`` and within PLL_ATOL of the reference rule
+   ``carrier_recovery.ddpll``, with cycles per symbol at the SM clock.
 4. main path, launch counters reset just before and read just after:
    ``simple_wdm_tx`` (11 channels of 16-QAM polmux, 32 GBd, SpS 16, 2**18
    bits = 2**20 samples, 37.5 GHz grid, -2 dBm/ch, RRC 0.01 with 1024 taps,
@@ -106,8 +107,9 @@ Phases:
    G. ``decode_ldpc`` on AR4JA 8192 R1/2, NMSA-20 bfloat16, B = 1024 (the JAX
       package's ``run_ar4ja_decode`` workload) on K12 (20 launches):
       decisions, iterations and fail flags equal to the plain 'xla' lift
-      route on the card; info Mbit/s; then 802.11n 1944 R1/2 at B = 1024 on
-      its plain route on the card.
+      route on the card; info Mbit/s; then the same at float32, and 802.11n
+      1944 R1/2 (L = 81) at B = 1024 bfloat16, each on K12 (20 launches)
+      and held to the plain route the same way.
 11. K13 and K14 vs plain, every comparison exact: K13, the DFE/FFE
    recurrence, at the IM-DD serving shape (PAM4, B = 8 x 16,384 symbols,
    15 / 5 taps, the real instance) as DFE and FFE, a signal alone against
@@ -147,6 +149,7 @@ import os
 import subprocess
 import sys
 import time
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -897,7 +900,8 @@ def phase_clock_pll_kernels(dev, const, n_cmp=16384, n_pll=65536):
     report["gardner_short_err"] = worst
 
     # K7: the DD-PLL over 22 columns with a pilot every PILOT_EVERY-th symbol,
-    # against its plain version, the reference rule carrier_recovery.ddpll
+    # against its plain twin (the kernel's own rule in torch ops) bit for bit
+    # and the reference rule carrier_recovery.ddpll within PLL_ATOL
     r = np.random.default_rng(62)
     tx = const[r.integers(0, 16, size=(n_pll, 22))]
     phi = np.cumsum(r.normal(scale=np.sqrt(2 * np.pi * 2e-6), size=(n_pll, 22)), axis=0)
@@ -908,18 +912,28 @@ def phase_clock_pll_kernels(dev, const, n_cmp=16384, n_pll=65536):
     pilot[::PILOT_EVERY] = 1.0
     loop = (1 / 32e9, 0.1, 1 / (2 * np.pi * 10e6), 1 / (2 * np.pi * 10e6))
     est_k = ddpll.ddpll_phases(xs, ref, pilot, const, *loop)
-    est_p, plain_s = _wall(lambda: ddpll_rule(
+    est_t, twin_s = _wall(lambda: ddpll.ddpll_plain(xs, ref, pilot, const,
+                                                    ddpll.loop_coefs(*loop)))
+    est_p, rule_s = _wall(lambda: ddpll_rule(
         xs, *loop, torch.as_tensor(const, device=dev), symb_tx=ref,
         pilot_ind=np.arange(0, n_pll, PILOT_EVERY)))
+    twin_err = float((est_k - est_t).abs().max())
+    same = bool(torch.equal(est_k, est_t))
     err = float((est_k - est_p).abs().max())
     ms = _cuda_ms(lambda: ddpll.ddpll_phases(xs, ref, pilot, const, *loop), 5)
-    print(f"K7 ddpll ({n_pll} x 22 columns, 16-QAM, pilot every {PILOT_EVERY}): max |phase err| "
-          f"{err:.3e} rad against carrier_recovery.ddpll, kernel {ms:.3f} ms, plain "
-          f"{plain_s * 1e3:.1f} ms")
+    sm_mhz = _sm_clock_mhz()
+    print(f"K7 ddpll ({n_pll} x 22 columns, 16-QAM, pilot every {PILOT_EVERY}): bit for bit "
+          f"with its plain twin {same} (max |diff| {twin_err:.3e} rad), max |phase err| "
+          f"{err:.3e} rad against carrier_recovery.ddpll, kernel {ms:.3f} ms "
+          f"({ms * 1e-3 / n_pll * sm_mhz * 1e6:.1f} cycles per symbol at {sm_mhz:.0f} MHz), "
+          f"plain twin {twin_s * 1e3:.1f} ms, reference rule {rule_s * 1e3:.1f} ms")
+    _check(same, "DD-PLL kernel differs from its plain twin")
     _check(err < PLL_ATOL and bool(torch.isfinite(est_k).all()),
-           "DD-PLL kernel disagrees with plain")
-    report["ddpll"] = _with_bound(dict(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3),
-                                  *_ddpll_cost(n_pll, 22, int(pilot.sum())))
+           "DD-PLL kernel disagrees with the reference rule")
+    report["ddpll"] = _with_cycles(_with_bound(
+        dict(max_abs_err=twin_err, ms=ms, plain_ms=twin_s * 1e3, reference_rule_ms=rule_s * 1e3,
+             max_abs_err_reference_rule=err),
+        *_ddpll_cost(n_pll, 22, int(pilot.sum()))), n_pll, sm_mhz)
     return report
 
 
@@ -1561,7 +1575,7 @@ def phase_mega_lift_kernels(dev, llr, lift_B=1024):
             print(f"K12 lift_iter {mode} {n} R{R} {mdt} (L={L}, E={tb['E']}, B={B}, passing "
                   f"{int(k[2].sum())}): max |err| {err:.1e}, bit-identical {same}, kernel "
                   f"{ms:.4f} ms, plain {plain_s * 1e3:.1f} ms, bound {bound[0]:.4f} ms "
-                  f"({bound[1]})")
+                  f"({bound[1]}), {100 * bound[0] / ms:.1f}% of the bound")
             _check(same and err == 0.0, f"K12 disagrees with plain ({mode} {n}, {mdt})")
             worst = max(worst, err)
             if mode == "AR4JA" and mdt == "bf16":  # path G's configuration
@@ -1688,50 +1702,55 @@ def run_lift_path_g(dev, B=1024):
     """Path G: AR4JA 8192 R1/2 (n = 10,240 with the punctured tail), NMSA-20
     bf16, B = 1024, through decode_ldpc on 'auto', which is K12 (the JAX
     package's ``ar4ja_decode_info_Mbit_per_s_b1024`` workload,
-    bench.py:347-365); decisions, iterations and fail flags against the
-    plain 'xla' lift route on the card. Then 802.11n 1944 R1/2 at B = 1024
-    on 'auto', which is the plain route there (L = 81)."""
+    bench.py:347-365); then the same at f32, and 802.11n 1944 R1/2 (L = 81)
+    at B = 1024 bf16, both on K12 too. Each decode launches K12 20 times and
+    equals the plain 'xla' lift route on the card in decisions, iterations
+    and fail flags."""
     from opticommpy_torch.comm import fec_lift
     from opticommpy_torch.comm.fec import LDPCConfig, decode_ldpc, standard_ldpc
 
+    def held(label, graph, llr, mode, n, R, mdt):
+        cfg = LDPCConfig(maxIter=20, alg="NMSA", msgDtype=mdt)
+        _reset_counts()
+        (dec, tot, fail), first_s = _wall(lambda: decode_ldpc(llr, graph=graph, config=cfg))
+        counts = _counts()
+        _check(counts == _expect(lift_iter=20), f"path G {label}: launches {counts}, "
+               "expected K12 20")
+        ms = _cuda_ms(lambda: decode_ldpc(llr, graph=graph, config=cfg), 3)
+        llr_n = torch.nn.functional.pad(llr, (0, 0, 0, graph["n"] - llr.shape[0]))
+        k12 = fec_lift.make_lift_decoder(mode, n, R, 20, "NMSA", mdt)(llr_n)
+        (tot_x, it_x, fail_x), xla_s = _wall(lambda: fec_lift.make_lift_decoder(
+            mode, n, R, 20, "NMSA", mdt, backend="xla")(llr_n))
+        n_out = tot.shape[0]
+        same_dec = bool(torch.equal(dec, (tot_x[:n_out] < 0).to(torch.int8)))
+        same_it = bool(torch.equal(k12[1], it_x))
+        same_fail = bool(torch.equal(fail, fail_x.to(torch.int8)))
+        same_tot = bool(torch.equal(tot, tot_x[:n_out]))
+        info_mbps = n * float(Fraction(R)) * B / ms / 1e3
+        print(f"path G {label} NMSA-20 (B={B}): launches K12 {counts['lift_iter']}, "
+              f"iterations mean {float(k12[1].float().mean()):.2f} max {int(k12[1].max())}, "
+              f"frames failed {int(fail.sum())}, ones decided {int(dec.sum())}, first "
+              f"{first_s * 1e3:.1f} ms, warm {ms:.2f} ms, {info_mbps:.1f} Mbit/s (info bits); "
+              f"the plain 'xla' route on the card ({xla_s * 1e3:.0f} ms): decisions equal "
+              f"{same_dec}, iterations equal {same_it}, fail flags equal {same_fail}, totals "
+              f"bit-identical {same_tot}")
+        _check(same_dec and same_it and same_fail,
+               f"path G {label}: K12 disagrees with the 'xla' route")
+        _check(bool(torch.isfinite(tot).all()) and tot.shape == llr.shape,
+               f"path G {label}: output {tuple(tot.shape)}")
+        return dict(counts=counts, ms=ms, info_mbps=info_mbps, failed=int(fail.sum()))
+
     graph, _ = standard_ldpc("AR4JA", 8192, "1/2")
     llr = _path_g_llrs(dev, graph["n"], B)
-    cfg = LDPCConfig(maxIter=20, alg="NMSA", msgDtype="bf16")
-    _reset_counts()
-    (dec, tot, fail), first_s = _wall(lambda: decode_ldpc(llr, graph=graph, config=cfg))
-    counts = _counts()
-    _check(counts == _expect(lift_iter=20), f"path G: launches {counts}, expected K12 20")
-    ms = _cuda_ms(lambda: decode_ldpc(llr, graph=graph, config=cfg), 3)
-    k12 = fec_lift.make_lift_decoder("AR4JA", 8192, "1/2", 20, "NMSA", "bf16")(llr)
-    (tot_x, it_x, fail_x), xla_s = _wall(lambda: fec_lift.make_lift_decoder(
-        "AR4JA", 8192, "1/2", 20, "NMSA", "bf16", backend="xla")(llr))
-    same_dec = bool(torch.equal(dec, (tot_x < 0).to(torch.int8)))
-    same_it = bool(torch.equal(k12[1], it_x))
-    same_fail = bool(torch.equal(fail, fail_x.to(torch.int8)))
-    same_tot = bool(torch.equal(tot, tot_x))
-    info_mbps = 8192 * 0.5 * B / ms / 1e3
-    print(f"path G decode_ldpc AR4JA 8192 R1/2 bf16 NMSA-20 (B={B}): launches K12 "
-          f"{counts['lift_iter']}, iterations mean {float(k12[1].float().mean()):.2f} max "
-          f"{int(k12[1].max())}, frames failed {int(fail.sum())}, ones decided "
-          f"{int(dec.sum())}, first {first_s * 1e3:.1f} ms, warm {ms:.2f} ms, {info_mbps:.1f} "
-          f"Mbit/s (info bits); the plain 'xla' route on the card ({xla_s * 1e3:.0f} ms): "
-          f"decisions equal {same_dec}, iterations equal {same_it}, fail flags equal "
-          f"{same_fail}, totals bit-identical {same_tot}")
-    _check(same_dec and same_it and same_fail, "path G: K12 disagrees with the 'xla' route")
-    _check(bool(torch.isfinite(tot).all()) and tuple(tot.shape) == (graph["n"], B),
-           f"path G: output {tuple(tot.shape)}")
+    out = held("AR4JA 8192 R1/2 bf16", graph, llr, "AR4JA", 8192, "1/2", "bf16")
+    out["f32"] = held("AR4JA 8192 R1/2 f32", graph, llr, "AR4JA", 8192, "1/2", "f32")
     g80211, _ = standard_ldpc("IEEE_802.11nD2", 1944, "1/2")
     llr80211 = _zero_codeword_llrs(dev, 1944, B, -1.5, 0.0, 11)
-    _reset_counts()
-    (dec2, tot2, fail2), s2 = _wall(lambda: decode_ldpc(llr80211, graph=g80211, config=cfg))
-    counts2 = _counts()
-    print(f"path G 802.11n 1944 R1/2 bf16 NMSA-20 (B={B}, all-zero codewords at -1.5 to 0 dB) "
-          f"on 'auto' (the plain route): launches {counts2}, frames failed "
-          f"{int(fail2.sum())}, {s2 * 1e3:.0f} ms")
-    _check(counts2 == _expect() and tot2.is_cuda and bool(torch.isfinite(tot2).all())
-           and int(fail2.sum()) < B // 2, f"path G 802.11n: launches {counts2}, "
-           f"{int(fail2.sum())} of {B} frames failed")
-    return dict(counts=counts, ms=ms, info_mbps=info_mbps)
+    out["80211n"] = held("802.11n 1944 R1/2 bf16 (all-zero codewords at -1.5 to 0 dB)",
+                         g80211, llr80211, "IEEE_802.11nD2", 1944, "1/2", "bf16")
+    _check(out["80211n"]["failed"] < B // 2,
+           f"path G 802.11n: {out['80211n']['failed']} of {B} frames failed")
+    return out
 
 
 def _sync_delay(ref, tx):
@@ -2429,7 +2448,10 @@ def main():
              launches=path_d["counts"]["qc_mega"], **report["qc_mega"]),
         dict(name="lift_iter", route="cuda", source="opticommpy_torch/csrc/lift.cu",
              replaces="opticommpy_tpu/kernels/lift_pallas.py:182",
-             launches=path_g["counts"]["lift_iter"], **report["lift_iter"]),
+             launches=path_g["counts"]["lift_iter"], **report["lift_iter"],
+             bound_share=report["lift_iter"]["bound_ms"] / report["lift_iter"]["ms"],
+             path_g_warm_ms={k: path_g[k]["ms"] for k in ("f32", "80211n")} | dict(
+                 bf16=path_g["ms"])),
         dict(name="dfe", route="cuda", source="opticommpy_torch/csrc/dfe.cu",
              replaces="opticommpy_tpu/kernels/dfe_pallas.py:160",
              launches=path_h["dfe"]["counts"]["dfe"], **report["dfe"],

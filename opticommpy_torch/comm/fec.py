@@ -736,8 +736,8 @@ def decode_ldpc(llrs, H=None, config: LDPCConfig = LDPCConfig(), graph=None):
       (``schedule="layered"`` needs K11 and raises on the CPU);
     - 802.11n and AR4JA graphs (``graph["lift"]``) on
       :func:`.fec_lift.make_lift_decoder` with ``backend="auto"``: the
-      iteration kernel K12 on CUDA for MSA/NMSA where the lift is 512 or
-      more rows (AR4JA 8192 R1/2), elsewhere the plain roll route;
+      iteration kernel K12 on CUDA for MSA/NMSA (every shipped code, both
+      message types), SPA and CPU tensors on the plain roll route;
     - other graphs on the degree-bucketed decoder, or on the uniformly
       padded one when the graph has no buckets.
     """

@@ -18,10 +18,13 @@ min-sum / NMSA / SPA, message storage type) are those of the QC decoder.
 Backends of :func:`make_lift_decoder`: ``'xla'``, the plain roll route in
 torch ops on any device; ``'pallas'``, one launch of the iteration kernel
 K12 per iteration (:mod:`opticommpy_torch.kernels.lift`; its plain version
-on CPU tensors); ``'auto'``, as the JAX package routes on an accelerator:
-K12 for CUDA tensors where the lift is a multiple of 8 of at least 512 rows,
-the algorithm MSA/NMSA and :func:`lift_budget_ok` holds (AR4JA 8192 R1/2 of
-the shipped codes), else ``'xla'``.
+on CPU tensors); ``'auto'``: K12 for every MSA/NMSA decode of CUDA tensors
+(K12 takes any lift, check degree and batch), else ``'xla'``. The JAX
+package's 'auto' takes its TPU kernel only where the lift fits the TPU's
+sublane tile and VMEM budget (AR4JA 8192 R1/2 at bf16); those limits are
+the TPU's and are not carried over. An explicit ``'pallas'`` keeps the JAX
+package's contract: it needs ``L % 8 == 0`` and MSA/NMSA, and raises
+otherwise.
 """
 
 from collections import Counter
@@ -34,7 +37,7 @@ from . import _code_tables
 from .codes import _rate_tag
 from .fec_qc import _msg_dtype, _plain_check_update
 
-__all__ = ["lift_tables", "lift_budget_ok", "lift_backend", "make_lift_decoder"]
+__all__ = ["lift_tables", "lift_backend", "make_lift_decoder"]
 
 
 def _edges_80211(n, R):
@@ -158,28 +161,13 @@ def _roll(p, sh, L):
     return torch.roll(p, sh, dims=0)
 
 
-def lift_budget_ok(mode, n, R, msg_dtype="bf16"):
-    """The JAX package's rule for taking its lift kernel: the kernel's VMEM
-    estimate for a 128-codeword tile fits its ~100 MB budget
-    (``opticommpy_tpu/kernels/lift_pallas.py:130-142``)."""
-    tb = lift_tables(mode, n, R)
-    E, L, V = tb["E"], tb["L"], tb["V"]
-    bt = 128
-    msize = 2 if msg_dtype == "bf16" else 4
-    refs = 2 * E * L * bt * msize + 2 * V * L * bt * 4 + 8 * bt * 4
-    return int(refs * 2.4) + E * L * bt * 4 + 2**23 <= 100 * 2**20
-
-
-def lift_backend(mode, n, R, alg, msg_dtype, on_cuda):
+def lift_backend(mode, n, R, alg, on_cuda):
     """The route ``backend='auto'`` takes: ``'pallas'`` (K12) for CUDA
-    tensors where the lift is a multiple of 8 of at least 512 rows, the
-    algorithm MSA/NMSA and the JAX package's budget holds (its rule on an
-    accelerator, ``opticommpy_tpu/comm/fec_lift.py:183-196``), else
-    ``'xla'``."""
-    L = lift_tables(mode, n, R)["L"]
-    take = (on_cuda and L % 8 == 0 and L >= 512 and alg in ("MSA", "NMSA")
-            and lift_budget_ok(mode, n, R, msg_dtype))
-    return "pallas" if take else "xla"
+    tensors and the MSA/NMSA algorithms, at any lift and message type of the
+    codes :func:`lift_tables` builds; ``'xla'`` for SPA, which has no
+    kernel, and on the CPU."""
+    lift_tables(mode, n, R)  # raises for a mode with no lift construction
+    return "pallas" if on_cuda and alg in ("MSA", "NMSA") else "xla"
 
 
 def make_lift_decoder(mode, n, R, max_iter, alg="MSA", msg_dtype="f32", early_exit=False,
@@ -194,11 +182,15 @@ def make_lift_decoder(mode, n, R, max_iter, alg="MSA", msg_dtype="f32", early_ex
     (module docstring); 'auto' is resolved per call from the LLRs' device
     (:func:`lift_backend`).
     """
+    L = lift_tables(mode, n, R)["L"]
+    if backend == "pallas" and (L % 8 != 0 or alg not in ("MSA", "NMSA")):
+        raise ValueError(f"pallas lift backend needs L%8==0 and MSA/NMSA (got L={L}, "
+                         f"alg={alg}); use backend='xla'")
     if backend != "auto":
         return _make_lift_decoder(mode, n, R, max_iter, alg, msg_dtype, early_exit, backend)
 
     def decode(llrs):
-        route = lift_backend(mode, n, R, alg, msg_dtype, llrs.is_cuda)
+        route = lift_backend(mode, n, R, alg, llrs.is_cuda)
         return _make_lift_decoder(mode, n, R, max_iter, alg, msg_dtype, early_exit,
                                   route)(llrs)
 
@@ -211,9 +203,8 @@ def _make_lift_decoder(mode, n, R, max_iter, alg, msg_dtype, early_exit, backend
     L, V = tb["L"], tb["V"]
     if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
-    if backend == "pallas" and (L % 8 != 0 or alg not in ("MSA", "NMSA")):
-        raise ValueError(f"pallas lift backend needs L%8==0 and MSA/NMSA (got L={L}, "
-                         f"alg={alg}); use backend='xla'")
+    if backend == "pallas" and alg not in ("MSA", "NMSA"):
+        raise ValueError(f"the lift kernel K12 runs MSA/NMSA, not {alg}; use backend='xla'")
     mdt = _msg_dtype(msg_dtype)
     check_update = _plain_check_update(alg)
     var_order, pos_back = tb["var_order"], tb["pos_of_v"]

@@ -52,7 +52,7 @@ _SIGNATURES = {
     "qc_check_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "qc_var_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "qc_mega_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _F, _I, *[_P] * 13, _P],
-    "lift_iter_launch": [_I, _I, _I, _I, _I, _I, _F, *[_P] * 13, _P],
+    "lift_iter_launch": [_I, _I, _I, _I, _I, _I, _F, *[_P] * 13, _I, _P],
     "dfe_launch": [_I, _I, _P, ctypes.c_longlong, _I, _I, _P, _P, _P, _I, _I, _F, _F, _F,
                    _I, _I, _F, _I, _I, *[_P] * 6, _P],
     "volterra_launch": [_I, _P, ctypes.c_longlong, _I, _I, _P, _I, _I, _P, _F, _F, _F, _F,

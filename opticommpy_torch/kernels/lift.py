@@ -13,9 +13,11 @@ adds every message in the TPU kernel's order (check bucket, group, slot),
 so the kernel equals :func:`lift_iter_plain` bit for bit.
 
 The TPU kernel needed the lift L to be a multiple of 8 (its sublane tile);
-this kernel takes any L. A wrapper runs the plain version for CPU tensors
-and the kernel, or raises, for CUDA tensors. ``launches`` counts kernel
-launches.
+this kernel takes any L, any B and check degrees up to 24 (the shipped
+codes have 3 to 22), with at most 256 edge planes and 64 check or variable
+planes. A wrapper runs the plain version for CPU tensors and the kernel,
+or raises, for CUDA tensors. ``launches`` counts calls of the kernel's
+entry point (one iteration each: three launches of its phases).
 """
 
 import numpy as np
@@ -27,6 +29,8 @@ from opticommpy_torch.kernels import _build
 __all__ = ["LiftLayout", "lift_iter", "lift_iter_plain", "launches"]
 
 launches = 0  # K12 launches made on CUDA tensors
+
+_MAX_DEG, _MAX_E, _MAX_PLANES = 24, 256, 64  # what the kernel's tables hold
 
 
 class LiftLayout:
@@ -65,6 +69,7 @@ class LiftLayout:
             return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
 
         self.C = len(cg_off) - 1
+        self.max_deg = max(d for d, _ in self.chk_buckets)
         self.cg_off, self.c_e, self.c_v, self.c_sh = (dev(cg_off), dev(c_e), dev(c_v),
                                                       dev(c_sh))
         self.vg_off = dev(vg_off)
@@ -129,6 +134,10 @@ def _lift_cuda(X, llr_bo, lay, alpha):
                          f"{llr_bo.dtype}")
     if lay.c_e.device != X.device:
         raise ValueError(f"lift_iter: tables on {lay.c_e.device}, tensors on {X.device}")
+    if lay.max_deg > _MAX_DEG or E > _MAX_E or max(lay.C, V) > _MAX_PLANES:
+        raise ValueError(f"lift_iter: check degree {lay.max_deg}, {E} edge planes, {lay.C} "
+                         f"check and {V} variable planes exceed the kernel's {_MAX_DEG}, "
+                         f"{_MAX_E}, {_MAX_PLANES}")
     lib = _build.load_library()
     X, llr_bo = X.contiguous(), llr_bo.contiguous()
     m = torch.empty_like(X)
@@ -141,7 +150,8 @@ def _lift_cuda(X, llr_bo, lay, alpha):
             float(alpha or 0.0), _build.ptr(X), _build.ptr(llr_bo), _build.ptr(lay.cg_off),
             _build.ptr(lay.c_e), _build.ptr(lay.c_v), _build.ptr(lay.c_sh),
             _build.ptr(lay.vg_off), _build.ptr(lay.v_e), _build.ptr(lay.v_sh), _build.ptr(m),
-            _build.ptr(xo), _build.ptr(T), _build.ptr(ok), _build.stream_ptr(X.device))
+            _build.ptr(xo), _build.ptr(T), _build.ptr(ok), lay.max_deg,
+            _build.stream_ptr(X.device))
     _build.check(code, "lift_iter_launch")
     launches += 1
     return xo, T, ok.bool()

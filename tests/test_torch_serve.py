@@ -10,7 +10,10 @@ Tolerances:
   pin between its scan and its kernel: the loop coefficients are rounded
   from float64 there and from float32 arithmetic in the scan, and the
   kernel quantizes where the scan takes an argmin); columns packed side by
-  side bit-identical to each signal alone.
+  side bit-identical to each signal alone. K7's plain twin ``ddpll_plain``
+  (the kernel's own rule in torch ops) within 2e-4 rad of ``ddpll_pallas``
+  on the CPU (the same pin: its sine and cosine are torch's, the JAX
+  interpreter's are XLA's), and K7 equal to it bit for bit on the card.
 - Viterbi: 1e-5 rad (the moving average is a cumulative-sum difference in
   both, summed in another order).
 - mimo_apply / mimo_apply_fused: relative error 1e-5 against JAX (float32
@@ -131,6 +134,48 @@ def test_ddpll_packed_columns_equal_each_signal():
                            tddpll.ddpll_kernel(sig[:, 2 * i:2 * i + 2], *args))
     ref = np.asarray(ddpll_pallas(to_np(sig), *args, interpret=True))
     np.testing.assert_allclose(to_np(packed), ref, rtol=0, atol=KERNEL_ATOL)
+
+
+def _twin_case(kind, n=1500, n_cols=3, seed=7):
+    """(x, ref, pilot, const) for the twin: 16-QAM with a pilot every 20th
+    symbol, or 8-PSK without pilots; NumPy draws."""
+    if kind == "qam16_pilots":
+        sig, tx, _ = _rotated(seed, n, 16, modes=n_cols)
+        const, pilot = norm_qam(16), np.zeros(n, np.float32)
+        pilot[::20] = 1.0
+    else:
+        const = _psk8()
+        rng = np.random.default_rng(seed)
+        tx = const[rng.integers(0, 8, size=(n, n_cols))]
+        phase = np.cumsum(rng.normal(0, 0.005, size=(n, 1)), axis=0)
+        sig, pilot = (tx * np.exp(1j * phase)).astype(np.complex64), np.zeros(n, np.float32)
+    return sig, tx.astype(np.complex64), pilot, const
+
+
+@pytest.mark.parametrize("kind", ["qam16_pilots", "psk8"])
+def test_ddpll_plain_twin_matches_pallas(kind):
+    """K7's plain twin (the kernel's grid quantizer on 16-QAM, the argmin on
+    8-PSK) against ddpll_pallas in interpret mode, pilots as the JAX
+    kernel's mask."""
+    sig, tx, pilot, const = _twin_case(kind)
+    kw = dict(symb_tx=tx, pilot_ind=np.flatnonzero(pilot)) if kind == "qam16_pilots" else {}
+    ref = np.asarray(ddpll_pallas(sig, TS, 0.1, TAU, TAU, const, block=256, interpret=True,
+                                  **kw))
+    out = tddpll.ddpll_plain(torch.as_tensor(sig), torch.as_tensor(tx), torch.as_tensor(pilot),
+                             const, tddpll.loop_coefs(TS, 0.1, TAU, TAU))
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(to_np(out), ref, rtol=0, atol=KERNEL_ATOL)
+
+
+def test_ddpll_plain_twin_packed_columns_equal_each_signal():
+    """The twin's packed columns equal each signal alone, bit for bit."""
+    sig, tx, pilot, const = _twin_case("qam16_pilots", n=600, n_cols=6, seed=8)
+    args = (const, tddpll.loop_coefs(1 / 32e9, 0.1, 1 / (2 * np.pi * 1e6), 1e-9))
+    x, r, p = torch.as_tensor(sig), torch.as_tensor(tx), torch.as_tensor(pilot)
+    packed = tddpll.ddpll_plain(x, r, p, *args)
+    for i in range(3):
+        cols = slice(2 * i, 2 * i + 2)
+        assert torch.equal(packed[:, cols], tddpll.ddpll_plain(x[:, cols], r[:, cols], p, *args))
 
 
 @pytest.mark.parametrize("alg", ["ddpll", "ddpll-pallas", "viterbi"])
@@ -377,3 +422,32 @@ def test_ddpll_kernel_matches_plain_on_gpu(kind):
     assert tddpll.launches == before + 1
     torch.cuda.synchronize()
     assert float((est_k - est_p).abs().max()) < KERNEL_ATOL
+
+
+# K7's staging edges: n not a multiple of the 256-row chunk, pilots on a
+# chunk's first and last rows, n below 16, 1 to 70 columns (a partial warp
+# of 16 columns, several warps), and the argmin slicer
+K7_EDGES = [("qam16_pilots", 300, 22), ("qam16_pilots", 7, 1), ("qam16_pilots", 1000, 33),
+            ("qam16_pilots", 515, 70), ("psk8", 400, 5), ("psk8", 129, 22)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n,n_cols", K7_EDGES)
+def test_ddpll_kernel_equals_twin_on_gpu(kind, n, n_cols):
+    """K7 against its plain twin on the card, bit for bit, one launch."""
+    dev = require_cuda()
+    sig, tx, pilot, const = _twin_case(kind, n, n_cols, seed=n + n_cols)
+    if kind == "qam16_pilots":
+        pilot[:] = 0.0
+        for r in (0, 127, 128, 255, 256, 511, 512, n - 1):
+            if r < n:
+                pilot[r] = 1.0
+        pilot[::31] = 1.0
+    x, ref = torch.as_tensor(sig, device=dev), torch.as_tensor(tx, device=dev)
+    p = torch.as_tensor(pilot, device=dev)
+    before = tddpll.launches
+    est_k = tddpll.ddpll_phases(x, ref, p, const, TS, 0.1, TAU, TAU)
+    assert tddpll.launches == before + 1
+    est_p = tddpll.ddpll_plain(x, ref, p, const, tddpll.loop_coefs(TS, 0.1, TAU, TAU))
+    torch.cuda.synchronize()
+    assert est_k.shape == (n, n_cols) and torch.equal(est_k, est_p)
