@@ -81,18 +81,20 @@ Phases:
    and R1/4; K11, the whole decode in one launch (NMSA-20, B = 512), flooding
    at R4/5 (path E's LLRs), R9/10 and R1/4 (all-zero codewords near each
    code's waterfall) against ``mega_decode_plain`` and the fused route (K9 +
-   K10), layered at R4/5 and R9/10, early exit against the fixed loop; K12,
+   K10), layered at the same three rates, early exit against the fixed loop; K12,
    one lifted-circulant iteration, at AR4JA 8192 R1/2 (B = 1024) and 802.11n
    1944 R1/2 (L = 81); bf16 and f32 messages; every comparison exact.
 10. LDPC decoding, counters reset just before each run and read just after:
    E. ``decode_ldpc`` on 512 encoded DVB-S2 64800 R4/5 codewords, BPSK over
-      AWGN at Es/N0 2.3 dB, NMSA-20: float32 messages on K9/K10, fixed loop
-      (K9 = K10 = 21) and early exit (K9 = K10 = steps), against the plain
-      'xla' route on the card (decisions, iterations, fails; totals < 1e-5
-      relative); bfloat16, the serving type, on K11 (one launch per decode),
-      fixed loop and early exit, and the layered schedule with early exit,
-      whose mean iterations must be below 0.75 x flooding's; FER 0 on every
-      run; early exit bit-identical to the fixed loop; decode ms and Mbit/s;
+      AWGN at Es/N0 2.3 dB, NMSA-20, 'auto': float32 and bfloat16 (the
+      serving type) messages each on K11 (one launch per decode), fixed
+      loop and early exit; the same float32 decodes on the fused route
+      (``backend="fused"``, K9 = K10 = 21 fixed, = steps with early exit),
+      equal to K11's bit for bit and held to the plain 'xla' route on the
+      card (decisions, iterations, fails; totals < 1e-5 relative); the
+      layered schedule with early exit on K11, whose mean iterations must
+      be below 0.75 x flooding's; FER 0 on every run; early exit
+      bit-identical to the fixed loop; decode ms and Mbit/s;
    F. ``make_qc_decoder(backend="pallas")`` on the same LLRs, bf16 NMSA-20:
       K8 20 launches, bit-identical to the bf16 'xla' route;
    D. the coded WDM link: 88 encoded R4/5 codewords, 8 per channel plus
@@ -118,7 +120,11 @@ Phases:
    8-PSK (argmin) at 8 x 4,096 (cycles per symbol of the DFE at the SM clock
    read after its window); K14, the Volterra recurrence, at
    bench_dsp.py's shape (B = 8 x 16,384 symbols, SpS 2, 13 / 7 / 5 taps,
-   mu 1e-3, nTrain 4000) at order 2 and 3, BER 0 after nTrain required.
+   mu 1e-3, nTrain 4000) at order 2 and 3 (cycles per symbol at order 3),
+   BER 0 after nTrain required; K14's two exact replacements of a division
+   on every float32 input: its quotient by 7 against __fdiv_rn and its
+   threshold slicer against the dividing one (PAM4 and PAM8 levels), no
+   input may differ.
 12. path H, IM-DD serving at the JAX package's bench size
    (bench.run_imdd_chain), counters reset just before each run and read
    just after: 8 links of PAM4 at 25 GBd, SpS 8, 2**17 bits (2**19
@@ -136,7 +142,8 @@ Phases:
    the card on the same arguments, bit for bit; then the links' SpS-2 samples through
    ``volterra_kernel`` (order 3, 13 / 7 / 5; K14 1 launch), BER printed,
    the kernel against the plain version on the CPU on a 4,096-symbol
-   prefix.
+   prefix, and K14 alone on the arguments the path gives it (8 x 65,536
+   symbols), its time and cycles per symbol.
 13. the time of every phase; then the kernels JSON line (K1-K14, each with
    its bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s),
    and last the ``{"ok": true, "device": ...}`` line.
@@ -1491,7 +1498,7 @@ def phase_mega_lift_kernels(dev, llr, lift_B=1024):
     CUDA events. K11 (NMSA-20, B = 512) on path E's LLRs at R4/5 and on
     all-zero codewords near each code's waterfall at R9/10 and R1/4: the
     flooding schedule at bf16 and f32, against the fused route (K9 + K10)
-    and ``mega_decode_plain``; the layered schedule at R4/5 and R9/10; early
+    and ``mega_decode_plain``; the layered schedule at the three rates; early
     exit against the fixed loop. K12 (NMSA) at AR4JA 8192 R1/2, B = 1024,
     and at 802.11n 1944 R1/2 (L = 81), on the state after two plain
     iterations. Every comparison must be exact."""
@@ -1508,7 +1515,7 @@ def phase_mega_lift_kernels(dev, llr, lift_B=1024):
         tb = fec_qc.qc_tables(R, 64800)
         lay = qc.QCLayout(tb, dev)
         li, lp = fec_qc._split_llrs(tb, x)
-        schedules = ("flooding", "layered") if R != "1/4" else ("flooding",)
+        schedules = ("flooding", "layered")
         for mdt in ("bf16", "f32"):
             fused = fec_qc.make_qc_decoder(64800, R, 20, "NMSA", mdt, backend="fused")(x)
             for sched in schedules:
@@ -1594,10 +1601,11 @@ def _path_g_llrs(dev, n, B, seed=0):
 
 def run_ldpc_path_e(dev, graph, cw, llr):
     """Path E: decode_ldpc on B=512 encoded R4/5 codewords at 2.3 dB,
-    NMSA-20, backend 'auto': float32 messages on the fused kernels K9/K10
-    (fixed loop and early exit; the plain 'xla' route on the card beside
-    it), bfloat16, the serving type, on K11 (fixed, early exit, and the
-    layered schedule with early exit)."""
+    NMSA-20, backend 'auto': float32 and bfloat16 (the serving type)
+    messages, each on K11 (fixed, early exit); the same float32 decodes on
+    the fused kernels K9/K10 (``backend="fused"``), equal to K11's bit for
+    bit (the plain 'xla' route on the card beside them), and the layered
+    schedule on K11 with early exit."""
     from opticommpy_torch.comm import fec_qc
     from opticommpy_torch.comm.fec import LDPCConfig, decode_ldpc
 
@@ -1611,17 +1619,12 @@ def run_ldpc_path_e(dev, graph, cw, llr):
             (dec, tot, fail), first_s = _wall(lambda: decode_ldpc(llr, graph=graph, config=cfg))
             counts = _counts()
             _, n_iters, _ = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", mdt, ee)(llr)
-            steps = 21 if not ee else int(n_iters.max()) + 1
-            expect = (_expect(qc_check=steps, qc_var=steps) if mdt == "f32" else
-                      _expect(qc_mega=1))
-            _check(counts == expect, f"path E {mdt} early exit {ee}: launches {counts}, expected "
-                   f"{'K9 = K10 = %d' % steps if mdt == 'f32' else 'K11 1'}")
+            _check(counts == _expect(qc_mega=1), f"path E {mdt} early exit {ee}: launches "
+                   f"{counts}, expected K11 1")
             ms = _cuda_ms(lambda: decode_ldpc(llr, graph=graph, config=cfg), 3)
             n_fail, n_err = int(fail.sum()), int((dec != cw).sum())
-            kern = (f"K9 {counts['qc_check']} K10 {counts['qc_var']}" if mdt == "f32" else
-                    f"K11 {counts['qc_mega']}")
             print(f"path E decode_ldpc {mdt} {'early exit' if ee else 'fixed-20'} (R4/5, B={B}, "
-                  f"2.3 dB): launches {kern}, iterations mean "
+                  f"2.3 dB): launches K11 {counts['qc_mega']}, iterations mean "
                   f"{float(n_iters.float().mean()):.2f} max {int(n_iters.max())}, frames failed "
                   f"{n_fail}, bit errors {n_err}, first {first_s * 1e3:.1f} ms, warm {ms:.2f} ms, "
                   f"{64800 * B / ms / 1e3:.1f} Mbit/s (codeword bits)")
@@ -1632,6 +1635,26 @@ def run_ldpc_path_e(dev, graph, cw, llr):
         print(f"path E {mdt}: early exit bit-identical to the fixed loop: {same}")
         _check(same, f"path E {mdt}: early exit differs from the fixed loop")
         out[mdt] = runs
+    # the float32 decodes on the fused route (K9 + K10), equal to K11's
+    fused = {}
+    for ee in (False, True):
+        dec_f = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", "f32", ee, backend="fused")
+        _reset_counts()
+        (tot_f, it_f, fail_f), first_s = _wall(lambda: dec_f(llr))
+        counts = _counts()
+        steps = 21 if not ee else int(it_f.max()) + 1
+        _check(counts == _expect(qc_check=steps, qc_var=steps), f"path E f32 fused early exit "
+               f"{ee}: launches {counts}, expected K9 = K10 = {steps}")
+        ms = _cuda_ms(lambda: dec_f(llr), 3)
+        dec, tot, fail, n_iters = out["f32"][ee][:4]
+        same = (bool(torch.equal(tot_f, tot)) and bool(torch.equal(it_f, n_iters))
+                and bool(torch.equal(fail_f.to(torch.int8), fail)))
+        print(f"path E f32 fused {'early exit' if ee else 'fixed-20'}: launches K9 "
+              f"{counts['qc_check']} K10 {counts['qc_var']}, first {first_s * 1e3:.1f} ms, warm "
+              f"{ms:.2f} ms ({64800 * B / ms / 1e3:.1f} Mbit/s); K11's 'auto' decode equal to it "
+              f"bit for bit: {same}")
+        _check(same, f"path E f32 early exit {ee}: K11 differs from the fused route")
+        fused[ee] = (ms, counts)
     # the layered schedule on K11 (bf16, early exit)
     cfg = LDPCConfig(maxIter=20, alg="NMSA", msgDtype="bf16", earlyExit=True, schedule="layered")
     _reset_counts()
@@ -1660,7 +1683,7 @@ def run_ldpc_path_e(dev, graph, cw, llr):
     rel = float((tot - tot_x).abs().max() / tot_x.abs().max())
     it_diff = int((n_iters != it_x).sum())
     dec_diff = int((dec != dec_x).sum())
-    print(f"path E f32 fused vs the plain 'xla' route on the card ({xla_s * 1e3:.0f} ms): "
+    print(f"path E f32 (K11, = fused) vs the plain 'xla' route ({xla_s * 1e3:.0f} ms): "
           f"iteration mismatches {it_diff}, decision mismatches {dec_diff}, fail "
           f"mismatches {int((fail.bool() != fail_x).sum())}, totals rel err {rel:.3e}; "
           f"'xla' frames failed {int(fail_x.sum())}, bit errors {int((dec_x != cw).sum())}")
@@ -1668,9 +1691,10 @@ def run_ldpc_path_e(dev, graph, cw, llr):
            "path E f32: the plain route does not decode every frame")
     _check(it_diff == 0 and dec_diff == 0 and rel < 1e-5,
            "path E f32: the fused route disagrees with the plain route")
-    return dict(fixed_ms=out["f32"][False][4], early_ms=out["f32"][True][4],
-                counts=out["f32"][False][5], bf16_fixed_ms=out["bf16"][False][4],
-                bf16_early_ms=out["bf16"][True][4], layered_ms=ms_l)
+    return dict(fixed_ms=fused[False][0], early_ms=fused[True][0], counts=fused[False][1],
+                f32_k11_fixed_ms=out["f32"][False][4], f32_k11_early_ms=out["f32"][True][4],
+                bf16_fixed_ms=out["bf16"][False][4], bf16_early_ms=out["bf16"][True][4],
+                layered_ms=ms_l)
 
 
 def run_ldpc_path_f(dev, graph, cw, llr):
@@ -1975,13 +1999,26 @@ def _dfe_cost(n_b, n_sym, n_ff, n_fb, sps, cplx):
     return nbytes, n_b * n_sym * ((20 if cplx else 5) * (n_ff + n_fb) + 10)
 
 
-def _volterra_cost(n_b, n_sym, n_q, n1, sps):
+def _volterra_cost(n_b, n_sym, n_adapt, n1, n2, n3, order, sps):
     """(bytes, flops) of one Volterra pass: the padded signal, the
-    references, the flat taps in and out, y and the error power; per symbol
-    and tap up to two feature products, the product with the tap, the add
-    and the update's two operations (~6), and ~10 for the slicer."""
+    references, the flat taps in and out, y and the error power. Per
+    symbol: each distinct feature product once (x[a] x[b] equals x[b] x[a],
+    so one pair product serves both orders of the pair and every order-3
+    feature built on it), the Q products with the taps and their Q - 1
+    adds, and ~10 for the slicer and the error. Per adapting symbol (n_adapt
+    of a signal's: n_train, or every symbol with fulltime): the update's
+    product and add per tap and three for the gains. The symbols after
+    training keep their taps, so they pay no update."""
+    from opticommpy_torch.kernels import volterra
+
+    idx, kind = volterra.feature_table(n1, n2, n3, order)
+    n_q = idx.shape[1]
+    pairs = {frozenset((a, b)) for a, b, _, k in zip(*idx.tolist(), kind.tolist()) if k >= 2}
+    triples = {(frozenset((a, b)), c) for a, b, c, k in zip(*idx.tolist(), kind.tolist())
+               if k == 3}
     nbytes = n_b * (4 * ((n_sym - 1) * sps + n1) + 4 * n_sym + 8 * n_q + 8 * n_sym)
-    return nbytes, n_b * n_sym * (6 * n_q + 10)
+    per_sym = len(pairs) + len(triples) + 2 * n_q - 1 + 10
+    return nbytes, n_b * (n_sym * per_sym + n_adapt * (2 * n_q + 3))
 
 
 def _pam_isi(n_b, n_sym, seed, h=(0.1, 0.25, 1.0, 0.3, -0.1), noise=0.03):
@@ -2118,9 +2155,41 @@ def phase_imdd_kernels(dev, n_pam=16384, n_cplx=4096, n_vol=16384):
         _check(same, f"K14 order {order}: kernel disagrees with its plain version")
         _check(max(bers) == 0.0, f"K14 order {order}: BER after nTrain {bers}, expected 0")
         if order == 3:
-            report["volterra"] = _with_bound(dict(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3),
-                                             *_volterra_cost(8, n_out, h0.shape[1], 13, 2))
+            report["volterra"] = _with_cycles(_with_bound(
+                dict(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3),
+                *_volterra_cost(8, n_out, 4000, 13, 7, 5, 3, 2)), n_out, _sm_clock_mhz())
+            print(f"K14 order 3: {report['volterra']['cycles_per_symbol']:.1f} cycles per symbol "
+                  f"at {report['volterra']['sm_clock_mhz']:.0f} MHz; bound "
+                  f"{report['volterra']['bound_ms']:.6f} ms ({report['volterra']['bound_by']}, "
+                  f"the update counted on the 4000 training symbols only)")
+    _volterra_exact_check(dev)
     return report
+
+
+def _volterra_exact_check(dev):
+    """K14's exact replacements of a division, on every float32 input: its
+    quotient by 7 against __fdiv_rn(x, 7) and its threshold slicer against
+    the dividing slicer, at PAM4 and PAM8 levels. No input may differ."""
+    from opticommpy_torch.kernels import _build, volterra
+
+    lib = _build.load_library()
+    for m in (4, 8):
+        levels = volterra._levels(m, "pam")
+        n, thr = volterra.slicer_thresholds(levels)
+        thr_t = torch.as_tensor(thr.copy(), device=dev)
+        bad = torch.zeros(12, dtype=torch.int64, device=dev)
+        t0 = time.perf_counter()
+        _build.check(lib.volterra_exact_check(0, 1 << 32, _build.ptr(thr_t), n,
+                                              float(levels[0]), float(levels[1] - levels[0]),
+                                              float(n - 1), _build.ptr(bad),
+                                              _build.stream_ptr(dev)), "volterra_exact_check")
+        torch.cuda.synchronize()
+        counts = bad.tolist()
+        print(f"K14 exact check over all 2^32 float32 inputs (PAM{m} levels, "
+              f"{time.perf_counter() - t0:.3f} s): quotient by 7 differs on {counts[0]}, "
+              f"threshold slicer on {counts[1]} (first inputs {counts[2:10]})")
+        _check(counts[:2] == [0, 0], f"K14: an exact replacement of a division differs "
+               f"(PAM{m}): {counts}")
 
 
 def imdd_links(dev, n_links=8, n_bits=2**17, seed=5):
@@ -2276,7 +2345,21 @@ def run_imdd_path_h(dev, n_links=8, n_bits=2**17, n_cmp=16384, n_wide=132):
     print(f"path H volterra on {n_links} x {n_pre} symbols, kernel against the CPU plain "
           f"version: equal {vsame}, max |diff| {verr:.3e}")
     _check(verr < VOL_PREFIX_ATOL, f"path H volterra: CPU plain version differs by {verr}")
-    out.update(vol_counts=vol_counts, vol_rows=vrows, failures=failures)
+    # K14 alone on the arguments the path gives it (these launches are not
+    # the path's)
+    with mock.patch.object(volterra, "volterra_run", wraps=volterra.volterra_run) as k14:
+        volterra.volterra_kernel(x2, ref_b, vcfg)
+    v_args = k14.call_args.args
+    v_ms = _cuda_ms(lambda: volterra.volterra_run(*v_args), 3)
+    k14_alone = _with_cycles(dict(ms=v_ms, n_batch=n_links, n_sym=v_args[3]), v_args[3],
+                             _sm_clock_mhz())
+    n_adapt = v_args[3] if v_args[12] else min(v_args[11], v_args[3])
+    k14_alone["bound_ms"], k14_alone["bound_by"] = _bound(*_volterra_cost(
+        n_links, v_args[3], n_adapt, 13, 7, 5, 3, 2))
+    print(f"path H volterra: K14 alone on the path's {n_links} x {v_args[3]} symbols "
+          f"{v_ms:.3f} ms ({k14_alone['cycles_per_symbol']:.1f} cycles per symbol at "
+          f"{k14_alone['sm_clock_mhz']:.0f} MHz; bound {k14_alone['bound_ms']:.6f} ms)")
+    out.update(vol_counts=vol_counts, vol_rows=vrows, failures=failures, k14=k14_alone)
     return out
 
 
@@ -2445,7 +2528,8 @@ def main():
              launches=path_e["counts"]["qc_var"], **report["qc_var"]),
         dict(name="qc_mega", route="cuda", source="opticommpy_torch/csrc/qc_mega.cu",
              replaces="opticommpy_tpu/kernels/qc_mega.py:443",
-             launches=path_d["counts"]["qc_mega"], **report["qc_mega"]),
+             launches=path_d["counts"]["qc_mega"], **report["qc_mega"],
+             bound_share=report["qc_mega"]["bound_ms"] / report["qc_mega"]["ms"]),
         dict(name="lift_iter", route="cuda", source="opticommpy_torch/csrc/lift.cu",
              replaces="opticommpy_tpu/kernels/lift_pallas.py:182",
              launches=path_g["counts"]["lift_iter"], **report["lift_iter"],
@@ -2458,7 +2542,8 @@ def main():
              path_h={eq: path_h[eq]["k13"] for eq in ("dfe", "ffe")}),
         dict(name="volterra", route="cuda", source="opticommpy_torch/csrc/volterra.cu",
              replaces="opticommpy_tpu/kernels/volterra_pallas.py:115",
-             launches=path_h["vol_counts"]["volterra"], **report["volterra"]),
+             launches=path_h["vol_counts"]["volterra"], **report["volterra"],
+             path_h=path_h["k14"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -730,9 +730,9 @@ def decode_ldpc(llrs, H=None, config: LDPCConfig = LDPCConfig(), graph=None):
     - DVB-S2 graphs (``graph["qc"]``) decode on
       :func:`.fec_qc.make_qc_decoder` with ``backend="auto"`` and
       ``config.schedule``: MSA/NMSA on CUDA on the whole-decode kernel K11
-      where :func:`.fec_qc.takes_megakernel` holds (bfloat16 messages at
-      every rate, float32 at rates 1/4 to 2/3), elsewhere on the fused
-      kernels K9 + K10; SPA and CPU tensors on the plain roll route
+      (every rate, both message types; the JAX package sends float32 at
+      rates 3/5 and above to its fused kernels, whose bits K11's flooding
+      schedule equals); SPA and CPU tensors on the plain roll route
       (``schedule="layered"`` needs K11 and raises on the CPU);
     - 802.11n and AR4JA graphs (``graph["lift"]``) on
       :func:`.fec_lift.make_lift_decoder` with ``backend="auto"``: the

@@ -26,10 +26,10 @@ Backends of :func:`make_qc_decoder`:
   tensors its plain version :func:`mega_decode_plain`. As in the JAX
   package, a flooding configuration that the megakernel's budget refuses
   (:func:`takes_megakernel`) takes the fused route instead;
-- ``'auto'``: by the LLRs' device, as the JAX package routes on an
-  accelerator: on CUDA, MSA/NMSA go to ``'mega'`` where
-  :func:`takes_megakernel` holds (bfloat16 messages at every rate, float32
-  at rates 1/4 to 2/3) and to ``'fused'`` elsewhere; SPA and CPU tensors go
+- ``'auto'``: by the LLRs' device: on CUDA, every MSA/NMSA decode goes to
+  K11 (both schedules, both message types, every rate: the card's K11 keeps
+  no decoder state resident, so the TPU's budget does not bind it, and its
+  flooding schedule equals ``'fused'`` bit for bit); SPA and CPU tensors go
   to ``'xla'``.
 
 The ``layered`` schedule (serial-C: in-place float32 totals, later check
@@ -275,20 +275,18 @@ def make_qc_decoder(n, R, max_iter, alg="MSA", msg_dtype="f32", early_exit=False
         alpha = 0.75 if alg == "NMSA" else None
         return _make_roll_decoder(tb, max_iter, msg_dtype, early_exit,
                                   lambda x: check_update_msa(x, alpha))
-    if backend == "mega" or (backend == "auto" and kernel_alg):
-        # the megakernel where its budget takes the configuration; flooding
-        # hands off to the fused route elsewhere, as in the JAX package
+    if backend == "mega":
+        # the megakernel where the JAX package's budget takes the
+        # configuration; flooding hands off to the fused route elsewhere
         if takes_megakernel(tb, msg_dtype, schedule):
-            on_cuda = _make_mega_decoder(tb, max_iter, alg, msg_dtype, early_exit, schedule)
-        elif schedule == "layered":
+            return _make_mega_decoder(tb, max_iter, alg, msg_dtype, early_exit, schedule)
+        if schedule == "layered":
             raise MegaBudgetError("schedule='layered' requires a megakernel-eligible config")
-        else:
-            on_cuda = _make_fused_decoder(tb, max_iter, alg, msg_dtype, early_exit)
-        if backend == "mega":
-            return on_cuda
+        return _make_fused_decoder(tb, max_iter, alg, msg_dtype, early_exit)
     xla = _make_roll_decoder(tb, max_iter, msg_dtype, early_exit, _plain_check_update(alg))
     if backend == "xla" or not kernel_alg:
         return xla
+    on_cuda = _make_mega_decoder(tb, max_iter, alg, msg_dtype, early_exit, schedule)
 
     def decode(llrs):
         if llrs.is_cuda:

@@ -24,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["load_library", "check", "ptr", "stream_ptr", "device_tables"]
+__all__ = ["load_library", "check", "ptr", "stream_ptr", "device_tables", "device_arrays"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -51,12 +51,15 @@ _SIGNATURES = {
     "ldpc_check_launch": [_I, _I, _P, ctypes.c_longlong, _I, _F, _P, _P],
     "qc_check_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "qc_var_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "qc_mega_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _F, _I, *[_P] * 13, _P],
+    "qc_mega_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _I, _I, _I, _I,
+                       _I, *[_P] * 7, _P],
     "lift_iter_launch": [_I, _I, _I, _I, _I, _I, _F, *[_P] * 13, _I, _P],
     "dfe_launch": [_I, _I, _P, ctypes.c_longlong, _I, _I, _P, _P, _P, _I, _I, _F, _F, _F,
                    _I, _I, _F, _I, _I, *[_P] * 6, _P],
-    "volterra_launch": [_I, _P, ctypes.c_longlong, _I, _I, _P, _I, _I, _P, _F, _F, _F, _F,
-                        _I, _I, _P, _P, _P, _P, _P],
+    "volterra_launch": [_I, _P, ctypes.c_longlong, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I,
+                        _P, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
+    "volterra_exact_check": [ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _I, _F, _F, _F, _P,
+                             _P],
 }
 
 _lib = None
@@ -141,7 +144,16 @@ def stream_ptr(device):
 
 def device_tables(const, aux, device):
     """(c_re, c_im, aux) float32 tensors on ``device``, uploaded once per
-    constellation, aux vector and device, for the kernels' wrappers.
+    constellation, aux vector and device, for the kernels' wrappers
+    (:func:`device_arrays`)."""
+    const = np.ascontiguousarray(const, np.complex64)
+    aux = np.zeros(0, np.float32) if aux is None else np.asarray(aux, np.float32)
+    return device_arrays((const.real, const.imag, aux), device)
+
+
+def device_arrays(arrays, device):
+    """The NumPy ``arrays`` as tensors on ``device``, uploaded once per
+    content and device: a kernel's lookup tables.
 
     A host-to-device copy from pageable NumPy memory waits for the stream,
     so uploading the tables on every call would keep a chain's host work
@@ -150,15 +162,15 @@ def device_tables(const, aux, device):
     """
     import torch
 
-    const = np.ascontiguousarray(const, np.complex64)
-    aux = np.ascontiguousarray(np.zeros(0) if aux is None else aux, np.float32)
     device = torch.device(device)
-    key = (const.tobytes(), aux.tobytes(), str(device))
-    hit = _tables.get(key)
-    if hit is None:
-        if len(_tables) >= _TABLES_MAX:
-            _tables.clear()
-        hit = _tables[key] = (torch.as_tensor(const.real.copy(), device=device),
-                              torch.as_tensor(const.imag.copy(), device=device),
-                              torch.as_tensor(aux, device=device))
-    return hit
+    out = []
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        key = (a.dtype.str, a.shape, a.tobytes(), str(device))
+        hit = _tables.get(key)
+        if hit is None:
+            if len(_tables) >= _TABLES_MAX:
+                _tables.clear()
+            hit = _tables[key] = torch.as_tensor(a.copy(), device=device)
+        out.append(hit)
+    return tuple(out)

@@ -46,7 +46,10 @@ class QCLayout:
     - ``pos``, ``sh`` (S, q): T plane (bucket order) and roll of each info
       slot of each check column (K9).
     - ``grp_off`` (G+1,), ``ent`` (E, 3): per group in bucket order, its
-      entries as (slot, a0, back-roll ``(Z - shift) mod Z``) (K10).
+      entries as (slot, a0, back-roll ``(Z - shift) mod Z``) (K10); NumPy
+      copies ``grp_off_np``, ``ent_np``.
+    - ``mega``: K11's tables per (message type, schedule), built at a
+      decode's first launch (``kernels/qc_mega.py``).
     """
 
     def __init__(self, tb, device):
@@ -63,7 +66,9 @@ class QCLayout:
             return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
 
         self.pos, self.sh = dev(self.pos_np), dev(self.sh_np)
+        self.grp_off_np, self.ent_np = grp_off.astype(np.int64), ent.astype(np.int64)
         self.grp_off, self.ent = dev(grp_off), dev(ent)
+        self.mega = {}
 
 
 def check_column_plain(T, Tp, M, lay, alpha=None):

@@ -19,17 +19,22 @@ centred sub-windows ``x2`` (``n2`` samples from ``t2 = (n1 - n2)//2``) and
   ``g/7`` for h3.
 
 The taps are one flat vector per signal, ``[h1, h2 (row-major), h3]``, of
-Q entries. Feature ``q`` belongs to lane ``q % 32`` and slot ``q // 32`` of
-a warp: the kernel sums each lane's slots in slot order, then the 32 lane
-sums by a butterfly, whose result on lane 0 is the pairwise tree
-``s[i] += s[i + h]``, h = 16, ..., 1. The plain version computes the same
-partial sums in the same order, vectorized over lanes, so the two agree
-bit for bit.
+Q entries. The kernel spreads them over ``LANES`` lanes of a warp grouped
+by order (h1's lanes, then h2's, then h3's), ``S`` slots each, S the least
+of ``SLOT_INSTANCES`` that fits (:func:`lane_layout`); a lane sums its
+slots by a pairwise tree, and the lane sums by a butterfly, whose result
+is the pairwise tree over the lanes. The plain version computes the same
+products and sums them in the same order, vectorized over lanes, so the
+two agree bit for bit. The kernel's slicer compares ``y`` with host
+thresholds (:func:`slicer_thresholds`) where the plain version divides;
+the thresholds decide exactly as the division does.
 
 :func:`volterra_run` routes by device: a CPU tensor goes to
 :func:`volterra_pass_plain`, a CUDA tensor to the kernel, which either
 launches or raises. ``launches`` counts kernel launches.
 """
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -40,12 +45,13 @@ from opticommpy_torch.ops.signal import pnorm_rows
 from opticommpy_torch.utils.rng import as_device_tensor
 
 __all__ = ["volterra_run", "volterra_pass_plain", "volterra_kernel", "feature_table",
-           "kernel_table", "launches"]
+           "lane_layout", "kernel_table", "slicer_thresholds", "launches"]
 
 launches = 0  # kernel launches made by volterra_run on CUDA tensors
 
-LANES = 32
-MAX_SLOTS = 16  # features per signal the kernel holds: 32 * MAX_SLOTS
+LANES = 32  # lanes of the kernel's adapting loop: one warp
+SLOT_INSTANCES = (1, 2, 3, 4, 5, 6, 7, 8, 10, 13, 16, 24, 32)  # the kernel's S
+MAX_LEVELS = 16  # slicer levels the kernel decides by thresholds
 
 
 def feature_table(n1, n2, n3, order):
@@ -64,12 +70,129 @@ def feature_table(n1, n2, n3, order):
     return table[:3], table[3]
 
 
-def kernel_table(n1, n2, n3, order):
-    """The kernel's (4, Q) int32 table, row-major: the three sample indices
-    of every feature and its order (C-contiguous: the kernel reads it by
-    row offsets)."""
+@lru_cache(maxsize=64)
+def lane_layout(n1, n2, n3, order):
+    """The kernel's layout of the flat taps over ``LANES`` lanes: (S, table
+    (LANES, S, 4) int32, lane order (LANES,) int32). Lanes are grouped by
+    order, h1's first; order k's taps fill ceil(count / S) lanes in flat
+    order, S consecutive taps a lane; S is the least of ``SLOT_INSTANCES``
+    that fits every order. ``table[l, s]`` holds the three window indices
+    of the feature (``n1`` stands for 1.0, ``n1 + 1`` for 0.0) and the flat
+    tap (-1 for a dead slot, whose feature is 0.0); idle lanes have order 0.
+    The arrays are shared between calls and must not be written."""
     idx, kind = feature_table(n1, n2, n3, order)
-    return np.ascontiguousarray(np.concatenate([idx, kind[None]]), dtype=np.int32)
+    counts = [int((kind == k).sum()) for k in (1, 2, 3)]
+    fits = [S for S in SLOT_INSTANCES if sum(-(-c // S) for c in counts) <= LANES]
+    if not fits:
+        raise ValueError(f"volterra: {idx.shape[1]} taps do not fit the kernel's {LANES} lanes "
+                         f"of at most {SLOT_INSTANCES[-1]} slots")
+    S = fits[0]
+    table = np.full((LANES, S, 4), n1 + 1, np.int32)
+    table[:, :, 3] = -1
+    lane_order = np.zeros(LANES, np.int32)
+    lane = 0
+    for k, c in zip((1, 2, 3), counts):
+        taps = np.flatnonzero(kind == k)
+        for i, q in enumerate(taps):
+            table[lane + i // S, i % S, :3] = idx[:, q]
+            table[lane + i // S, i % S, 3] = q
+        used = -(-c // S)
+        lane_order[lane:lane + used] = k
+        lane += used
+    table.setflags(write=False)
+    lane_order.setflags(write=False)
+    return S, table, lane_order
+
+
+@lru_cache(maxsize=64)
+def kernel_table(n1, n2, n3, order):
+    """(S, the kernel's int32 table): :func:`lane_layout`'s table, row-major,
+    then the lanes' orders (C-contiguous: the kernel reads it by offsets).
+    The array is shared between calls and must not be written."""
+    S, table, lane_order = lane_layout(n1, n2, n3, order)
+    out = np.ascontiguousarray(np.concatenate([table.ravel(), lane_order]), dtype=np.int32)
+    out.setflags(write=False)
+    return S, out
+
+
+def _tree_lanes(p):
+    """Pairwise tree over the last axis of ``p`` (n entries): s[i] += s[i +
+    h] for the live pairs, h from the power of two below n down to 1; the
+    kernel's Tree and Butterfly. Returns the sum, the last axis dropped."""
+    n = p.shape[-1]
+    h = 1
+    while h < n:
+        h *= 2
+    h //= 2
+    while h >= 1:
+        m = n - h
+        if m > 0:
+            p = torch.cat([p[..., :m] + p[..., h:h + m], p[..., m:h]], dim=-1)
+        else:
+            p = p[..., :h]
+        n = min(n, h)
+        p = p[..., :n]
+        h //= 2
+    return p[..., 0]
+
+
+def slicer_thresholds(levels):
+    """(n_levels, thr (31,) float32) of the grid slicer ``clip(rint((y -
+    lo) / step), 0, L - 1) * step + lo`` over the sorted ``levels``:
+    ``thr[i]``, i < 15, is the least float32 y that the slicer takes to
+    level i + 1 (NaN past the last), ``thr[15 + i]`` level i's value
+    ``i * step + lo`` in float32. The slicer is a monotone step function of
+    y, so it takes y to level ``#{i: y >= thr[i]}``; the thresholds are
+    found by bisection over the float32 values with the slicer's own
+    float32 operations. More than 16 levels: thresholds are not used (the
+    kernel divides). The array is shared between calls and must not be
+    written."""
+    levels = np.asarray(levels, np.float32)
+    return _slicer_thresholds(levels.tobytes())
+
+
+@lru_cache(maxsize=64)
+def _slicer_thresholds(levels_bytes):
+    levels = np.frombuffer(levels_bytes, np.float32)
+    n = len(levels)
+    lo = np.float32(levels[0])
+    step = np.float32(levels[1] - levels[0]) if n > 1 else np.float32(1.0)
+    top = np.float32(n - 1)
+    out = np.full(2 * MAX_LEVELS - 1, np.nan, np.float32)
+    out[MAX_LEVELS - 1:] = levels[0]
+    if n > MAX_LEVELS:
+        out.setflags(write=False)
+        return n, out
+
+    def decide(keys):
+        with np.errstate(over="ignore", invalid="ignore"):
+            y = _from_key(keys)
+            return np.clip(np.rint((y - lo) / step), np.float32(0), top)
+
+    lo_k = np.full(n - 1, _to_key(np.float32(-np.inf)), np.int64)
+    hi_k = np.full(n - 1, _to_key(np.float32(np.inf)), np.int64)
+    want = np.arange(1, n, dtype=np.float32)
+    while np.any(lo_k < hi_k):  # least key whose decision reaches the level
+        mid = (lo_k + hi_k) // 2
+        up = decide(mid) >= want
+        hi_k = np.where(up, mid, hi_k)
+        lo_k = np.where(up, lo_k, mid + 1)
+    out[:n - 1] = _from_key(lo_k)
+    out[MAX_LEVELS - 1:MAX_LEVELS - 1 + n] = np.arange(n, dtype=np.float32) * step + lo
+    out.setflags(write=False)
+    return n, out
+
+
+def _to_key(y):
+    """Order-preserving int64 key of float32 values (NaN excluded)."""
+    u = np.asarray(y, np.float32).view(np.uint32).astype(np.int64)
+    return np.where(u >= 2**31, 2**32 - 1 - u, u + 2**31)
+
+
+def _from_key(k):
+    k = np.asarray(k, np.int64)
+    u = np.where(k >= 2**31, k - 2**31, 2**32 - 1 - k)
+    return u.astype(np.uint32).view(np.float32)
 
 
 def _check(sig_pad, ref, h0, n_sym, sps, n1):
@@ -95,49 +218,42 @@ def volterra_pass_plain(sig_pad, ref, h0, n_sym, sps, n1, n2, n3, order, levels,
     ``sig_pad`` (B, N) and ``ref`` (B, n_sym) float32; ``h0`` (B, Q) flat
     taps (see :func:`feature_table`); ``levels`` the sorted PAM levels.
     ``grid=False`` decides by the argmin over the levels (the JAX scan's
-    rule). Returns (y (B, n_sym), mse (B, n_sym), h (B, Q)), ``y`` before
-    the output ``pnorm``.
+    rule). The taps are summed in the order of the kernel's layout over
+    ``LANES`` lanes (:func:`lane_layout`). Returns (y (B, n_sym), mse (B,
+    n_sym), h (B, Q)), ``y`` before the output ``pnorm``.
     """
     _check(sig_pad, ref, h0, n_sym, sps, n1)
     dev = sig_pad.device
     f32 = dict(dtype=torch.float32, device=dev)
-    idx, kind = feature_table(n1, n2, n3, order)
-    n_q = idx.shape[1]
+    n_q = feature_table(n1, n2, n3, order)[0].shape[1]
     if h0.shape[1] != n_q:
         raise ValueError(f"volterra: taps must be (B, {n_q})")
+    _, table, lane_order = lane_layout(n1, n2, n3, order)
+    idx_t = torch.as_tensor(table[:, :, :3].astype(np.int64), device=dev)  # (lanes, S, 3)
+    q = table[:, :, 3]
+    live = torch.as_tensor(q >= 0, device=dev)
+    q_t = torch.as_tensor(np.where(q >= 0, q, 0).astype(np.int64), device=dev)
     n_b = sig_pad.shape[0]
-    slots = -(-n_q // LANES)
-    pad = slots * LANES - n_q
-    # padded features read index n1 + 1, which holds 0.0
-    idx = np.concatenate([idx, np.full((3, pad), n1 + 1)], axis=1)
-    kind = np.concatenate([kind, np.zeros(pad, np.int64)])
-    idx_t = torch.as_tensor(idx, device=dev)
-    kind_t = torch.as_tensor(kind, device=dev)
     wins = sig_pad.to(torch.float32).unfold(1, n1, sps)[:, :n_sym]  # (B, n_sym, n1)
     ext = torch.cat([wins, torch.ones((n_b, n_sym, 1), **f32),
                      torch.zeros((n_b, n_sym, 1), **f32)], dim=2)
     ref = ref.to(torch.float32)
-    h = torch.cat([h0.to(torch.float32), torch.zeros((n_b, pad), **f32)], dim=1)
+    h = torch.where(live, h0.to(torch.float32)[:, q_t], torch.zeros((), **f32))  # (B, lanes, S)
     lo, step = float(levels[0]), float(levels[1] - levels[0]) if len(levels) > 1 else 1.0
     top = float(len(levels) - 1)
     step_t = torch.tensor(step, **f32)  # device divisors: true divisions on CUDA
     seven = torch.tensor(7.0, **f32)
     lev_t = torch.as_tensor(np.asarray(levels, np.float32), device=dev)
+    # a lane's update gain by its order: 0 (idle) and 3 take g / 7, as the kernel
+    pick = torch.as_tensor(np.where(lane_order == 0, 3, lane_order).astype(np.int64) - 1,
+                           device=dev)
     y = torch.empty((n_b, n_sym), **f32)
     mse = torch.empty((n_b, n_sym), **f32)
-    zero = torch.zeros((n_b, 1), **f32)
 
     for k in range(n_sym):
-        x = ext[:, k][:, idx_t]  # (B, 3, slots*32)
-        phi = (x[:, 0] * x[:, 1]) * x[:, 2]
-        p = (h * phi).reshape(n_b, slots, LANES)
-        part = p[:, 0]
-        for s in range(1, slots):
-            part = part + p[:, s]
-        while part.shape[1] > 1:
-            half = part.shape[1] // 2
-            part = part[:, :half] + part[:, half:]
-        yk = part[:, 0]
+        x = ext[:, k]  # (B, n1 + 2)
+        phi = (x[:, idx_t[..., 0]] * x[:, idx_t[..., 1]]) * x[:, idx_t[..., 2]]
+        yk = _tree_lanes(_tree_lanes(h * phi))
         if k < n_train:
             t = ref[:, k]
         elif grid:
@@ -148,11 +264,13 @@ def volterra_pass_plain(sig_pad, ref, h0, n_sym, sps, n1, n2, n3, order, levels,
         e = t - yk
         if fulltime or k < n_train:
             g = e * mu
-            gq = torch.stack([zero[:, 0], g, 0.5 * g, g / seven], dim=1)[:, kind_t]
-            h = h + gq * phi
+            gq = torch.stack([g, 0.5 * g, g / seven], dim=1)[:, pick]  # (B, lanes)
+            h = h + gq[:, :, None] * phi
         y[:, k] = yk
         mse[:, k] = e * e
-    return y, mse, h[:, :n_q]
+    h_flat = torch.zeros((n_b, n_q), **f32)
+    h_flat[:, q_t[live]] = h[:, live]
+    return y, mse, h_flat
 
 
 def _volterra_cuda(sig_pad, ref, h0, n_sym, sps, n1, n2, n3, order, levels, mu, n_train,
@@ -163,16 +281,16 @@ def _volterra_cuda(sig_pad, ref, h0, n_sym, sps, n1, n2, n3, order, levels, mu, 
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != sig_pad.device:
             raise ValueError(f"volterra: {name} must be a contiguous float32 tensor on "
                              "the signal's device")
-    idx, kind = feature_table(n1, n2, n3, order)
-    n_q = idx.shape[1]
+    n_q = feature_table(n1, n2, n3, order)[0].shape[1]
     if h0.shape[1] != n_q:
         raise ValueError(f"volterra: taps must be (B, {n_q})")
-    if n1 > LANES or n_q > LANES * MAX_SLOTS:
-        raise ValueError(f"volterra: the kernel takes n1Taps <= {LANES} and at most "
-                         f"{LANES * MAX_SLOTS} taps in all")
+    if n1 > 32:
+        raise ValueError("volterra: the kernel takes n1Taps <= 32")
     lib = _build.load_library()
     dev = sig_pad.device
-    table = torch.as_tensor(kernel_table(n1, n2, n3, order), device=dev)
+    slots, table = kernel_table(n1, n2, n3, order)
+    n_levels, thr = slicer_thresholds(levels)
+    table_t, thr_t = _build.device_arrays((table, thr), dev)
     lo, step = float(levels[0]), float(levels[1] - levels[0]) if len(levels) > 1 else 1.0
     n_b = sig_pad.shape[0]
     y = torch.empty((n_b, n_sym), dtype=torch.float32, device=dev)
@@ -180,10 +298,11 @@ def _volterra_cuda(sig_pad, ref, h0, n_sym, sps, n1, n2, n3, order, levels, mu, 
     h_out = torch.empty_like(h0)
     with torch.cuda.device(dev):
         code = lib.volterra_launch(
-            n_b, _build.ptr(sig_pad), sig_pad.shape[1], n_sym, sps, _build.ptr(ref), n1,
-            n_q, _build.ptr(table), lo, step, float(len(levels) - 1), float(mu),
-            int(n_train), int(bool(fulltime)), _build.ptr(h0), _build.ptr(h_out),
-            _build.ptr(y), _build.ptr(mse), _build.stream_ptr(dev))
+            n_b, _build.ptr(sig_pad), sig_pad.shape[1], n_sym, sps, _build.ptr(ref), n1, n2,
+            n3, order, n_q, slots, _build.ptr(table_t), n_levels, _build.ptr(thr_t), lo, step,
+            float(len(levels) - 1), float(mu), int(n_train), int(bool(fulltime)),
+            _build.ptr(h0), _build.ptr(h_out), _build.ptr(y), _build.ptr(mse),
+            _build.stream_ptr(dev))
     _build.check(code, "volterra_launch")
     launches += 1
     return y, mse, h_out

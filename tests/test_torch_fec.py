@@ -286,10 +286,11 @@ def test_check_update_plain_equals_pallas_kernel(dtype, alpha):
 @pytest.mark.parametrize("mdt", ["bf16", "f32"])
 @pytest.mark.parametrize("R", DVBS2_RATES)
 def test_megakernel_routing_matches_jax(R, mdt):
-    """'auto' on CUDA sends to K11 exactly the configurations that the JAX
+    """'mega' keeps K11 for exactly the configurations that the JAX
     package's 'auto' on an accelerator decodes on its megakernel: those
     whose state for a 128-codeword tile fits the megakernel's budget
-    (opticommpy_tpu/comm/fec_qc.py:406-457)."""
+    (opticommpy_tpu/comm/fec_qc.py:406-457). ('auto' on CUDA takes K11 for
+    every MSA/NMSA configuration: tests/test_torch_fec_mega.py.)"""
     tb = tqc.qc_tables(R, 64800)
     jdt = jnp.bfloat16 if mdt == "bf16" else jnp.float32
     mega = (jmega.mega_state_bytes(tb["G"], tb["q"], tb["S"], 128, jdt)

@@ -123,10 +123,12 @@ def test_cuda_decode_launches_the_kernels_and_no_plain_path():
              mock.patch.object(tqc, "_check_msa_slots", wraps=tqc._check_msa_slots)]
     spies = [p.start() for p in plain]
     try:
+        # decode_ldpc sends this decode to K11 ('auto'); 'fused' runs K9 + K10
         with mock.patch.object(lib, "qc_check_launch", wraps=lib.qc_check_launch) as k9, \
                 mock.patch.object(lib, "qc_var_launch", wraps=lib.qc_var_launch) as k10:
-            dec, out, fail = tfec.decode_ldpc(llr, graph=graph, config=tfec.LDPCConfig(
-                maxIter=6, alg="NMSA", msgDtype="f32"))
+            out, _, fail = tqc.make_qc_decoder(64800, "4/5", 6, "NMSA", "f32",
+                                               backend="fused")(llr)
+        dec, fail = (out < 0).to(torch.int8), fail.to(torch.int8)
         assert k9.call_count == k10.call_count == 7
         with mock.patch.object(lib, "ldpc_check_launch", wraps=lib.ldpc_check_launch) as k8:
             out8 = tqc.make_qc_decoder(64800, "4/5", 6, "NMSA", "f32", backend="pallas")(llr)

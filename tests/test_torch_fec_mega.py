@@ -109,6 +109,42 @@ def test_mega_routes_like_the_jax_package():
     assert issubclass(tqc.MegaBudgetError, ValueError)
 
 
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("mdt", ["bf16", "f32"])
+@pytest.mark.parametrize("R", DVBS2_RATES)
+def test_auto_routes_every_msa_nmsa_cuda_decode_to_k11(R, mdt, schedule):
+    """'auto' on CUDA tensors takes K11 for every MSA/NMSA code, both message
+    types and both schedules, with no fused or plain route beside it (the
+    CUDA side mocked: a tensor that says it is on CUDA); CPU tensors and SPA
+    keep the plain roll route."""
+    cuda = mock.MagicMock()
+    cuda.is_cuda = True
+    cpu = mock.MagicMock()
+    cpu.is_cuda = False
+    make = tqc.make_qc_decoder.__wrapped__  # past the decoder cache
+    for alg in ("MSA", "NMSA"):
+        with mock.patch.object(tqc, "_make_mega_decoder",
+                               return_value=lambda x: "k11") as mega, \
+                mock.patch.object(tqc, "_make_fused_decoder") as fused, \
+                mock.patch.object(tqc, "_make_roll_decoder",
+                                  return_value=lambda x: "xla") as roll:
+            dec = make(64800, R, 5, alg, mdt, True, "auto", schedule)
+            assert dec(cuda) == "k11"
+            assert mega.call_args.args[1:] == (5, alg, mdt, True, schedule)
+            assert fused.call_count == 0
+            if schedule == "flooding":
+                assert dec(cpu) == "xla" and roll.call_count == 1
+    if schedule == "flooding":
+        with mock.patch.object(tqc, "_make_mega_decoder") as mega, \
+                mock.patch.object(tqc, "_make_roll_decoder", return_value=lambda x: "xla"):
+            assert make(64800, R, 5, "SPA", mdt, False, "auto", schedule)(cuda) == "xla"
+            assert mega.call_count == 0
+        with mock.patch.object(tqc, "_make_mega_decoder") as mega, \
+                mock.patch.object(tqc, "_make_fused_decoder", return_value="k9k10") as fused:
+            assert make(64800, R, 5, "NMSA", mdt, False, "fused", schedule) == "k9k10"
+            assert mega.call_count == 0 and fused.call_count == 1
+
+
 # -- K11 on the card ----------------------------------------------------------
 
 def _cuda_llrs(dev, R, B=40):
@@ -160,3 +196,57 @@ def test_cuda_auto_launches_k11_once_per_decode():
     assert torch.equal(out[1], fused[0]) and torch.equal(out[2], fused[2].to(torch.int8))
     assert not bool(out[2].any()) and not bool(lay[2].any())
     assert torch.equal(out[0], lay[0])  # both decode every codeword
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R, mdt, schedule", [("4/5", "bf16", "flooding"),
+                                              ("4/5", "bf16", "layered"),
+                                              ("2/3", "f32", "flooding"),
+                                              ("1/4", "f32", "layered"),
+                                              ("8/9", "bf16", "flooding"),
+                                              ("9/10", "f32", "layered")])
+@pytest.mark.parametrize("B", [1, 3, 37])
+def test_k11_batches_converging_apart_match_plain_on_gpu(R, mdt, schedule, B):
+    """K11 against its plain version at batch sizes that fill no multiple of
+    anything (one CTA per codeword; the kernel batches columns and groups,
+    not codewords), on codewords that converge at different steps, under
+    early exit and the fixed loop."""
+    dev = require_cuda()
+    tb = tqc.qc_tables(R, 64800)
+    lay = tqck.QCLayout(tb, dev)
+    lo, hi = {"4/5": (2.0, 6.0), "2/3": (1.2, 5.0), "1/4": (-2.8, 1.0), "8/9": (3.6, 8.0),
+              "9/10": (4.0, 8.0)}[R]
+    llr = torch.as_tensor(zero_codeword_llrs(B, tuple(np.linspace(lo, hi, B))), device=dev)
+    li, lp = tqc._split_llrs(tb, llr)
+    outs = []
+    for ee in (False, True):
+        before = tmega.launches
+        k = tmega.qc_decode_mega(li, lp, lay, 9, 0.75, mdt, ee, schedule)
+        assert tmega.launches == before + 1
+        p = tqc.mega_decode_plain(li, lp, lay, 9, 0.75, mdt, ee, schedule)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+        outs.append(k)
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    if B > 1:
+        assert int(outs[0][3].min()) < int(outs[0][3].max())  # converged apart
+
+
+@pytest.mark.gpu
+def test_cuda_auto_f32_r45_launches_k11_and_equals_fused():
+    """Path E's float32 decode (R4/5 NMSA, 'auto'): one K11 launch, no K9 or
+    K10, and the fused route's bits."""
+    dev = require_cuda()
+    graph, _ = tfec.standard_ldpc("DVBS2", 64800, "4/5")
+    llr = _cuda_llrs(dev, "4/5", B=24)
+    k9, k10, k11 = tqck.check_launches, tqck.var_launches, tmega.launches
+    with mock.patch.object(tmega, "mega_decode_plain", wraps=tmega.mega_decode_plain) as plain:
+        dec, out, fail = tfec.decode_ldpc(llr, graph=graph, config=tfec.LDPCConfig(
+            maxIter=20, alg="NMSA", msgDtype="f32", earlyExit=True))
+    assert (tqck.check_launches, tqck.var_launches, tmega.launches) == (k9, k10, k11 + 1)
+    assert plain.call_count == 0
+    tot, n_iters, fail_f = tqc.make_qc_decoder(64800, "4/5", 20, "NMSA", "f32", True,
+                                               backend="fused")(llr)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tot) and torch.equal(fail, fail_f.to(torch.int8))
+    assert torch.equal(dec, (tot < 0).to(torch.int8))
