@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's coherent WDM and IM-DD paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch port's coherent WDM, IM-DD, digital-backpropagation
+and single-polarization paths once on one NVIDIA GPU.
 
 Phases:
 1. device: needs CUDA (exits non-zero otherwise); prints the card's
@@ -144,9 +144,44 @@ Phases:
    the kernel against the plain version on the CPU on a 4,096-symbol
    prefix, and K14 alone on the arguments the path gives it (8 x 65,536
    symbols), its time and cycles per symbol.
-13. the time of every phase; then the kernels JSON line (K1-K14, each with
-   its bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s),
-   and last the ``{"ok": true, "device": ...}`` line.
+13. path I, the digital-backpropagation link of BASELINE config 5
+   (examples/nlc_dbp_transmission.py at 2**18 bits), counters reset just
+   before and read just after: ``simple_wdm_tx`` (1 channel of 16-QAM
+   polmux, 32 GBd, SpS 8, RRC 0.01 with 1024 taps, no linewidth) -> five
+   copies at -2, 0, 2, 4 and 6 dBm by ``set_power_for_par_ssfm`` -> one
+   ``manakov_ssf`` call (8 x 50 km, hz 0.25 km, ideal gain, fused) -> per
+   power the matched filter and decimation to 2 SpS, then an EDC arm and a
+   ``manakov_dbp`` arm (hz 5 km at 64 GS/s, after the rescale to the launch
+   power), each through ``symbol_sync``, ``mimo_adapt_equalizer`` (nlms
+   twice, then dd-lms, on K2) and ``cpr(alg="bps-pallas")`` (K1): K1 10
+   launches and K2 30 required; per power, arm and polarization BER <= 2 x
+   JAX + 1e-4 and GMI >= JAX - 0.05 (numbers from
+   ``tools/jax_dbp_reference.py``), MI printed; wherever the JAX run's DBP
+   arm beats its EDC arm by 0.5 dB of mean SNR, the port's must too; the
+   same link once more from ``wdm_tx_build`` on the JAX run's own symbols
+   (``tools/dbp_jax_seed7_symbols.npz``), each arm's mean SNR per power
+   within SAME_SYMB_SNR_DB of the JAX run's (the DBP arm's BER and GMI
+   are saturated, its SNR is not; counters not read for this run);
+   ``manakov_ssf`` and ``manakov_dbp`` on a 2**14-sample prefix over one
+   span on CUDA against the CPU (1e-4 relative); warm times of the forward
+   SSFM, of ``manakov_dbp`` per power and of one arm's chain, and the
+   peak memory, each beside the card's name and power limit.
+14. phase J, the single-polarization functions at 2**20 samples or 2**16
+   symbols: ``quantizer``, ``freq_shift``, ``pm``, ``voa``, ``detector``
+   (MAP, ML), ``soft_mapper``, ``soft_estimator``, ``calc_extr_llr``,
+   ``calc_mi``, ``monte_carlo_mi``, ``symbol_sync(mode="real")``,
+   ``sync_data_sequences`` (both references), ``cazac_sequence``, the bit
+   arrays and ``set_power_for_par_ssfm`` on CUDA against the same call on
+   CPU tensors, each with its tolerance printed; ``symbol_source`` (2**24
+   symbols, uniform and Maxwell-Boltzmann: every frequency within 1% of
+   px), ``awgn``, ``adc`` / ``dac`` (ENOB below nBits, jitter) and
+   ``ssfm`` with EDFAs by their noise statistics (within 2% of the model);
+   the scalar ``ssfm`` over 5 x 50 km at hz 0.5, fused and not, one span
+   against the CPU (1e-4 relative) and its warm time.
+15. the time of every phase; then the kernels JSON line (K1-K14, each with
+   its bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s;
+   K1 and K2 also with their path I launches), and last the
+   ``{"ok": true, "device": ...}`` line.
 
 Usage: python3 chip_smoke.py
 """
@@ -329,6 +364,83 @@ JAX_IMDD = {
             (0.0, 0.0014408150454983115)),
 }
 
+# The JAX package (0.9.0) on the CPU at path I's configuration (the DBP link of
+# BASELINE config 5), per launch power [dBm] and arm, per polarization: BER,
+# GMI, MI and SNR [dB] after the first 5,000 and before the last 100 symbols:
+# JAX_PLATFORMS=cpu python tools/jax_dbp_reference.py (517 s on 8 CPU cores)
+JAX_DBP = {
+    -2.0: {
+        "edc": dict(
+            ber=(0.0, 0.0),
+            gmi=(4.0, 4.0),
+            mi=(3.9997527599334717, 4.002316951751709),
+            snr=(27.13178825378418, 27.077377319335938),
+        ),
+        "dbp": dict(
+            ber=(0.0, 0.0),
+            gmi=(4.0, 4.0),
+            mi=(4.0197954177856445, 4.009955406188965),
+            snr=(35.51251983642578, 35.55844497680664),
+        ),
+    },
+    0.0: {
+        "edc": dict(
+            ber=(0.0, 0.0),
+            gmi=(4.0, 4.0),
+            mi=(3.9988718032836914, 4.001983165740967),
+            snr=(25.093801498413086, 25.01097869873047),
+        ),
+        "dbp": dict(
+            ber=(0.0, 0.0),
+            gmi=(4.0, 4.0),
+            mi=(4.014058589935303, 4.007803440093994),
+            snr=(34.605743408203125, 34.657371520996094),
+        ),
+    },
+    2.0: {
+        "edc": dict(
+            ber=(0.0, 1.2409822375047952e-05),
+            gmi=(3.9999990463256836, 3.9996485710144043),
+            mi=(3.9981775283813477, 4.001372337341309),
+            snr=(22.198528289794922, 22.1007080078125),
+        ),
+        "dbp": dict(
+            ber=(0.0, 0.0),
+            gmi=(4.0, 4.0),
+            mi=(4.007630348205566, 4.005365371704102),
+            snr=(32.950721740722656, 33.00785446166992),
+        ),
+    },
+    4.0: {
+        "edc": dict(
+            ber=(0.0005460322136059403, 0.0006039447034709156),
+            gmi=(3.982875108718872, 3.9783108234405518),
+            mi=(3.9806559085845947, 3.9798872470855713),
+            snr=(18.674238204956055, 18.576274871826172),
+        ),
+        "dbp": dict(
+            ber=(0.0, 0.0),
+            gmi=(4.0, 4.0),
+            mi=(4.000840187072754, 4.00271463394165),
+            snr=(28.727807998657227, 28.63926124572754),
+        ),
+    },
+    6.0: {
+        "edc": dict(
+            ber=(0.009282547049224377, 0.0100809121504426),
+            gmi=(3.80523681640625, 3.789936065673828),
+            mi=(3.80283522605896, 3.790647506713867),
+            snr=(14.725078582763672, 14.61874008178711),
+        ),
+        "dbp": dict(
+            ber=(0.0, 0.0),
+            gmi=(4.0, 4.0),
+            mi=(3.9995779991149902, 4.002255916595459),
+            snr=(26.801372528076172, 26.766929626464844),
+        ),
+    },
+}
+
 BPS_MAX_MISMATCH = 0.01  # the JAX package's near-tie rule
 EQ_Y_ATOL, EQ_H_ATOL = 2e-4, 1e-3  # the JAX package's scan-vs-kernel pins
 CR_ATOL, PLL_ATOL = 1e-5, 2e-4  # Gardner kernel vs loop; DD-PLL kernel vs scan
@@ -373,10 +485,11 @@ def _with_cycles(entry, n_sym, sm_mhz):
 
 
 def _wall(fn):
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - t0
 
 
@@ -435,13 +548,17 @@ def _with_bound(entry, nbytes, flops):
     return entry
 
 
+def _smi():
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)  # name, power limit: exactly as nvidia-smi prints them
+    print(_smi())  # name, power limit: exactly as nvidia-smi prints them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2363,6 +2480,386 @@ def run_imdd_path_h(dev, n_links=8, n_bits=2**17, n_cmp=16384, n_wide=132):
     return out
 
 
+DBP_POWERS = (-2.0, 0.0, 2.0, 4.0, 6.0)
+SPAN_REL = 1e-4  # path I and phase J: an SSFM / DBP span on CUDA vs CPU, relative
+STAT_REL = 0.02  # phase J, a drawn noise variance against its model
+# path I on the JAX package's seed-7 symbols: |port - JAX| mean SNR per power and
+# arm [dB]. Both receivers then see one transmitter; the packages met within
+# 0.0022 dB there on an H100, while other transmitters move the DBP arm's mean
+# SNR by up to 1.8 dB at 4 dBm (tools/torch_dbp_witness.py; PERF.md)
+SAME_SYMB_SNR_DB = 0.05
+DBP_JAX_SYMBOLS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                               "dbp_jax_seed7_symbols.npz")
+
+
+def _rel(a, b):
+    """||a - b|| / ||b|| over all elements (float64, on the host)."""
+    a = a.detach().cpu().to(torch.complex128)
+    b = b.detach().cpu().to(torch.complex128)
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def _dbp_arm(sig_cd, symb_ref, n_train=4000, disc=5000):
+    """One arm of path I: symbol_sync, the MIMO equalizer on K2 (nlms twice,
+    then dd-lms), BPS on K1; (y, d) after the discarded symbols."""
+    from opticommpy_torch.dsp import CPRConfig, MIMOEqualizerConfig, cpr, mimo_adapt_equalizer
+    from opticommpy_torch.ops import pnorm, symbol_sync
+
+    d_ref = pnorm(symbol_sync(sig_cd, symb_ref, 2))
+    n_sym = d_ref.shape[0]
+    y = mimo_adapt_equalizer(
+        pnorm(sig_cd),
+        MIMOEqualizerConfig(nTaps=15, SpS=2, mu=(2e-3, 2e-3), alg=("nlms", "dd-lms"),
+                            L=(n_train, n_sym - n_train), M=16, numIter=2, backend="pallas"),
+        symb_ref=d_ref)
+    y = cpr(y, CPRConfig(alg="bps-pallas", M=16, N=50, B=64, Ts=1 / 32e9))
+    return y[disc:-100], d_ref[disc:-100]
+
+
+def _dbp_scores(y, d):
+    from opticommpy_torch.comm.metrics import fast_ber_calc, monte_carlo_gmi, monte_carlo_mi
+
+    ber, _, snr = fast_ber_calc(y, d, 16, "qam")
+    gmi, _ = monte_carlo_gmi(y, d, 16, "qam")
+    mi = monte_carlo_mi(y, d, 16, "qam")
+    return {k: v.cpu().numpy() for k, v in dict(ber=ber, gmi=gmi, mi=mi, snr=snr).items()}
+
+
+def dbp_tx_config(n_bits=2**18):
+    """Path I's transmitter: 1 channel of 16-QAM polmux, 32 GBd, SpS 8, RRC
+    0.01 with 1024 taps, no laser linewidth, 0 dBm."""
+    from opticommpy_torch.models.tx import WDMTxConfig
+
+    return WDMTxConfig(M=16, Rs=32e9, SpS=8, nBits=n_bits, nChannels=1, nPolModes=2,
+                       nFilterTaps=1024, pulseRollOff=0.01, powerPerChannel=(0.0,),
+                       laserLinewidth=0.0)
+
+
+def dbp_link(sig_tx, symb_ref, fs):
+    """Path I from the transmitted field on: the five launch powers as ten
+    columns of one manakov_ssf call (8 x 50 km, hz 0.25 km), then per power
+    the matched filter, decimation to 2 SpS and two arms, EDC and the
+    launch-power rescale plus manakov_dbp (hz 5 km), each through
+    :func:`_dbp_arm`. Returns the configurations, the power-scaled batch,
+    each power's arm inputs, the scores per power and arm, and the SSFM's
+    wall time."""
+    from opticommpy_torch.dsp import EDCConfig, edc, manakov_dbp
+    from opticommpy_torch.models import SSFMConfig, manakov_ssf
+    from opticommpy_torch.models.tx import set_power_for_par_ssfm
+    from opticommpy_torch.ops import decimate, fir_filter, pulse_shape
+
+    cfg_ch = SSFMConfig(Ltotal=400, Lspan=50, hz=0.25, alpha=0.2, D=16, gamma=1.3,
+                        Fs=fs, amp="ideal", nlprMethod=False, trapIters=1,
+                        fusedLinear=True)
+    cfg_dbp = SSFMConfig(Ltotal=400, Lspan=50, hz=5.0, alpha=0.2, D=16, gamma=1.3, Fs=64e9,
+                         amp="ideal", nlprMethod=False, trapIters=1, fusedLinear=True)
+    pulse = pulse_shape("rrc", 8, 1024, 0.01)
+    sig_batch = set_power_for_par_ssfm(torch.cat([sig_tx] * len(DBP_POWERS), dim=1),
+                                       DBP_POWERS)
+    sig_rx_all, ssfm_s = _wall(lambda: manakov_ssf(sig_batch, cfg_ch))
+    arms_in, scores = {}, {}
+    for i, p_dbm in enumerate(DBP_POWERS):
+        sig_dec = decimate(fir_filter(pulse, sig_rx_all[:, 2 * i:2 * i + 2]), 8, 2)
+        scale = torch.sqrt(10 ** (p_dbm / 10) * 1e-3 / 2
+                           / torch.mean((sig_dec * sig_dec.conj()).real))
+        arms_in[p_dbm] = dict(edc=edc(sig_dec, EDCConfig(L=400, D=16, Fs=64e9, Rs=32e9)),
+                              dbp=manakov_dbp(sig_dec * scale, cfg_dbp), scaled=sig_dec * scale)
+        scores[p_dbm] = {arm: _dbp_scores(*_dbp_arm(arms_in[p_dbm][arm], symb_ref))
+                         for arm in ("edc", "dbp")}
+    return (cfg_ch, cfg_dbp), sig_batch, arms_in, scores, ssfm_s
+
+
+def dbp_tx_from_jax_symbols(dev, cfg_tx):
+    """Path I's transmitter (``wdm_tx_build``, no phase noise) on the JAX
+    package's seed-7 symbols: the 16-QAM indices that
+    ``tools/jax_dbp_reference.py --save-symbols`` wrote. Returns the field
+    and the reference symbols (nSymbols, 2)."""
+    from opticommpy_torch.comm.modulation import gray_mapping
+    from opticommpy_torch.models.tx import wdm_tx_build
+
+    idx = np.load(DBP_JAX_SYMBOLS)["idx"]  # (nSymbols, 2)
+    const = gray_mapping(16, "qam")
+    const = (const / np.sqrt(np.mean(np.abs(const) ** 2))).astype(np.complex64)
+    symbols = torch.as_tensor(const[idx.T][None], device=dev)  # (1, 2, nSymbols)
+    pn = torch.zeros((1, idx.shape[0] * cfg_tx.SpS), device=dev)
+    sig_tx, symb_tx, _ = wdm_tx_build(symbols, pn, cfg_tx)
+    return sig_tx, symb_tx[:, :, 0]
+
+
+def run_dbp_path_i(dev, n_bits=2**18):
+    """Path I, the DBP link of BASELINE config 5 (examples/nlc_dbp_transmission.py
+    at 2**18 bits): five launch powers through one manakov_ssf call, then per
+    power an EDC arm and a manakov_dbp arm, each through K2 (3 launches) and
+    K1 (1). Counters reset just before and read just after."""
+    from dataclasses import replace
+
+    from opticommpy_torch.dsp import manakov_dbp
+    from opticommpy_torch.models import manakov_ssf
+    from opticommpy_torch.models.tx import simple_wdm_tx
+
+    smi = _smi()
+    cfg_tx = dbp_tx_config(n_bits)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    sig_tx, symb_tx, _ = simple_wdm_tx(torch.Generator(device=dev).manual_seed(7), cfg_tx)
+    symb_ref = symb_tx[:, :, 0]
+    (cfg_ch, cfg_dbp), sig_batch, arms_in, scores, ssfm_s = dbp_link(sig_tx, symb_ref,
+                                                                     cfg_tx.Fs)
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"path I launches: {counts}")
+    _check(counts == _expect(bps=2 * len(DBP_POWERS), mimo_eq=6 * len(DBP_POWERS)),
+           f"path I launched {counts}, expected K1 x {2 * len(DBP_POWERS)} "
+           f"(one per arm and power) and K2 x {6 * len(DBP_POWERS)} (one per training pass)")
+
+    failures = []
+    for p_dbm in DBP_POWERS:
+        for arm in ("edc", "dbp"):
+            got, ref = scores[p_dbm][arm], JAX_DBP[p_dbm][arm]
+            print(f"path I {p_dbm:+.0f} dBm {arm}: BER {got['ber']} (JAX {ref['ber']}), GMI "
+                  f"{got['gmi']} (JAX {ref['gmi']}), MI {got['mi']} (JAX {ref['mi']}), SNR "
+                  f"{got['snr']} dB (JAX {ref['snr']})")
+            for p in range(2):
+                if not (np.isfinite(got["ber"][p]) and np.isfinite(got["gmi"][p])
+                        and np.isfinite(got["mi"][p])):
+                    failures.append(f"{p_dbm} dBm {arm} pol {p}: non-finite metric")
+                if got["ber"][p] > 2 * ref["ber"][p] + 1e-4:
+                    failures.append(f"{p_dbm} dBm {arm} pol {p}: BER {got['ber'][p]} above "
+                                    f"2 x JAX {ref['ber'][p]} + 1e-4")
+                if got["gmi"][p] < ref["gmi"][p] - 0.05:
+                    failures.append(f"{p_dbm} dBm {arm} pol {p}: GMI {got['gmi'][p]} below "
+                                    f"JAX {ref['gmi'][p]} - 0.05")
+        gain = float(np.mean(scores[p_dbm]["dbp"]["snr"]) - np.mean(scores[p_dbm]["edc"]["snr"]))
+        jax_gain = float(np.mean(JAX_DBP[p_dbm]["dbp"]["snr"])
+                         - np.mean(JAX_DBP[p_dbm]["edc"]["snr"]))
+        print(f"path I {p_dbm:+.0f} dBm: DBP - EDC mean SNR {gain:.4f} dB (JAX {jax_gain:.4f})")
+        if jax_gain >= 0.5 and gain < 0.5:
+            failures.append(f"{p_dbm} dBm: DBP beats EDC by {gain} dB, JAX by {jax_gain}")
+
+    # the same link on the JAX package's transmitted symbols: each arm's mean
+    # SNR against JAX's, which the saturated BER and GMI gates cannot see
+    same = dbp_link(*dbp_tx_from_jax_symbols(dev, cfg_tx), cfg_tx.Fs)[3]
+    for p_dbm in DBP_POWERS:
+        for arm in ("edc", "dbp"):
+            got = float(np.mean(same[p_dbm][arm]["snr"]))
+            ref = float(np.mean(JAX_DBP[p_dbm][arm]["snr"]))
+            print(f"path I on the JAX symbols {p_dbm:+.0f} dBm {arm}: mean SNR {got:.4f} dB "
+                  f"(JAX {ref:.4f}, tolerance {SAME_SYMB_SNR_DB:g})")
+            if not abs(got - ref) <= SAME_SYMB_SNR_DB:
+                failures.append(f"{p_dbm} dBm {arm} on the JAX symbols: mean SNR {got} dB, "
+                                f"JAX {ref} (tolerance {SAME_SYMB_SNR_DB})")
+
+    # CUDA against the same calls on CPU tensors: a 2**14-sample prefix, one span
+    fwd, back = replace(cfg_ch, Ltotal=50), replace(cfg_dbp, Ltotal=50)
+    prefix = sig_batch[:2**14]
+    dec_prefix = arms_in[DBP_POWERS[-1]]["scaled"][:2**14]
+    rel_f = _rel(manakov_ssf(prefix, fwd), manakov_ssf(prefix.cpu(), fwd))
+    rel_b = _rel(manakov_dbp(dec_prefix, back), manakov_dbp(dec_prefix.cpu(), back))
+    print(f"path I prefix (2**14 samples, one span): manakov_ssf CUDA vs CPU rel {rel_f:.3e}, "
+          f"manakov_dbp rel {rel_b:.3e} (tolerance {SPAN_REL:g})")
+    if not (rel_f <= SPAN_REL and rel_b <= SPAN_REL):
+        failures.append(f"prefix: CUDA vs CPU rel {rel_f}, {rel_b} above {SPAN_REL}")
+
+    # warm times
+    n_samples = sig_batch.shape[0] * len(DBP_POWERS)
+    _, ssfm_warm = _wall(lambda: manakov_ssf(sig_batch, cfg_ch))
+    dbp_ms = {p: _wall(lambda p=p: manakov_dbp(arms_in[p]["scaled"], cfg_dbp))[1] * 1e3
+              for p in DBP_POWERS}
+    (y, _), arm_s = _wall(lambda: _dbp_arm(arms_in[DBP_POWERS[-1]]["dbp"], symb_ref))
+    n_sym = arms_in[DBP_POWERS[-1]]["dbp"].shape[0] // 2
+    print(f"path I forward manakov_ssf (1,600 steps, {sig_batch.shape[0]} x "
+          f"{sig_batch.shape[1]} samples): first {ssfm_s:.3f} s, warm {ssfm_warm:.3f} s, "
+          f"{n_samples / ssfm_warm:.4e} samples/s over the five signals ({smi})")
+    print(f"path I manakov_dbp warm ms per power (80 steps, {2 * n_sym} x 2 samples): "
+          + ", ".join(f"{p:+.0f} dBm {ms:.3f}" for p, ms in dbp_ms.items()) + f" ({smi})")
+    print(f"path I one arm's DSP chain warm: {arm_s * 1e3:.3f} ms, "
+          f"{n_sym / arm_s / 1e6:.4f} Msym/s ({smi})")
+    print(f"path I peak device memory: {peak_gib:.3f} GiB ({smi})")
+    _check(not failures, "path I failed:\n  " + "\n  ".join(failures))
+    return dict(counts=counts, ssfm_warm_s=ssfm_warm, dbp_ms=dbp_ms, arm_s=arm_s)
+
+
+def _cuda_vs_cpu(name, fn, args, tol, dev):
+    """Run ``fn`` on the tensors of ``args`` on the card and on the CPU; the
+    largest difference over every output, relative to the output's peak (0
+    for integer outputs, which must be equal)."""
+    out_g = fn(*[a.to(dev) if isinstance(a, torch.Tensor) else a for a in args])
+    out_c = fn(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+    outs_g = out_g if isinstance(out_g, tuple) else (out_g,)
+    outs_c = out_c if isinstance(out_c, tuple) else (out_c,)
+    err = 0.0
+    for g, c in zip(outs_g, outs_c):
+        _check(g.is_cuda and g.shape == c.shape, f"phase J {name}: output not on the card")
+        if not (g.is_floating_point() or g.is_complex()):
+            err = max(err, float((g.cpu() != c).sum()))
+            continue
+        peak = float(c.abs().max()) or 1.0
+        err = max(err, float((g.cpu() - c).abs().max()) / peak)
+    print(f"phase J {name}: max |CUDA - CPU| / peak {err:.3e} (tolerance {tol:g})")
+    _check(err <= tol, f"phase J {name}: CUDA and CPU differ by {err} (tolerance {tol})")
+    return out_g
+
+
+def _stat(name, got, want):
+    rel = abs(got / want - 1)
+    print(f"phase J {name}: {got:.6e} against {want:.6e}, relative {rel:.4f} "
+          f"(tolerance {STAT_REL})")
+    _check(rel <= STAT_REL, f"phase J {name}: {got} is {rel:.4f} off {want}")
+
+
+def phase_single_pol(dev, n=2**20, n_sym=2**16, seed=11):
+    """Phase J: the single-polarization functions at 2**20 samples or 2**16
+    symbols. Deterministic ones on CUDA against the same call on CPU tensors
+    (NumPy inputs from a seed); random ones by their statistics on the card;
+    the scalar ssfm as a 5 x 50 km link."""
+    from dataclasses import replace
+
+    import scipy.constants as sconst
+
+    from opticommpy_torch.comm import metrics as tmet
+    from opticommpy_torch.comm import modulation as tmod
+    from opticommpy_torch.comm import sources as tsrc
+    from opticommpy_torch.dsp import SyncConfig, sync_data_sequences
+    from opticommpy_torch.models import channels as tch
+    from opticommpy_torch.models import devices as tdev
+    from opticommpy_torch.models.tx import set_power_for_par_ssfm
+    from opticommpy_torch.ops import fir_filter, freq_shift, pulse_shape, quantizer, symbol_sync
+    from opticommpy_torch.utils import bitarray2dec, dec2bitarray
+
+    smi = _smi()
+    rng = np.random.default_rng(seed)
+
+    def cplx(*shape):
+        return torch.as_tensor(
+            (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64))
+
+    const = tmod.norm_const(16, "qam")
+    ind = rng.integers(0, 16, size=(n_sym, 2))
+    tx = torch.as_tensor(const[ind])
+    rx = tx + 0.15 * cplx(n_sym, 2)
+    x = torch.as_tensor(rng.uniform(-1.2, 1.2, size=n).astype(np.float32))
+    _cuda_vs_cpu("quantizer (8 bits)", lambda a: quantizer(a, 8, 1.0, -1.0), (x,), 0.0, dev)
+    sig = cplx(n, 2)
+    _cuda_vs_cpu("freq_shift", lambda a: freq_shift(a, 1.3e9, 64e9), (sig,), 1e-5, dev)
+    _cuda_vs_cpu("pm", lambda a, u: tdev.pm(a, u, 2.0), (sig, x[:, None].repeat(1, 2)), 1e-5, dev)
+    _cuda_vs_cpu("voa", lambda a: tdev.voa(a, 3.0), (sig,), 0.0, dev)
+    constt = torch.as_tensor(const)
+    px = tsrc.symbol_pmf(16, "qam", "maxwell-boltzmann", 0.1)
+    for rule in ("MAP", "ML"):
+        _cuda_vs_cpu(f"detector {rule}", lambda r, c: tmod.detector(
+            r, 0.05, c, px=torch.as_tensor(px), rule=rule), (rx, constt), 1e-6, dev)
+    llr = torch.as_tensor(rng.normal(scale=6.0, size=n_sym * 4).astype(np.float32))
+    _cuda_vs_cpu("soft_mapper", lambda a: tmod.soft_mapper(a, 16, "qam"), (llr,), 1e-5, dev)
+    _cuda_vs_cpu("soft_estimator", lambda a, c: tmod.soft_estimator(
+        a.reshape(-1, 4), tmod.bit_map(16, "qam"), c), (llr, constt), 1e-5, dev)
+    x_mu = torch.as_tensor((0.9 + 0.05 * rng.normal(size=n_sym)).astype(np.float32))
+    x_nu = torch.as_tensor(np.abs(0.2 * rng.normal(size=n_sym)).astype(np.float32))
+    _cuda_vs_cpu("calc_extr_llr", lambda a, r, m, v: tmet.calc_extr_llr(
+        a, r, m, v, const, tmod.bit_map(16, "qam")), (llr, rx[:, 0], x_mu, x_nu), 1e-5, dev)
+    _cuda_vs_cpu("calc_mi", lambda r, t: tmet.calc_mi(r, t, 0.045, const, np.ones(16) / 16),
+                 (rx[:, 0], tx[:, 0]), 1e-5, dev)
+    mi = _cuda_vs_cpu("monte_carlo_mi", lambda r, t: tmet.monte_carlo_mi(r, t, 16, "qam"),
+                      (rx, tx), 1e-5, dev)
+    print(f"phase J monte_carlo_mi at 2**16 symbols, 16-QAM, SNR ~16.5 dB: {mi.cpu().numpy()}")
+    # symbol_sync 'real': swapped modes, a quarter turn, a conjugate, delays
+    rx_sync = torch.stack([1j * torch.roll(rx[:, 1], 17), torch.roll(rx[:, 0], -5).conj()], 1)
+    rx_sync = rx_sync.repeat_interleave(2, dim=0)
+    synced = _cuda_vs_cpu("symbol_sync real", lambda r, t: symbol_sync(r, t, 2, mode="real"),
+                          (rx_sync, tx), 0.0, dev)
+    _check(float(torch.mean(torch.abs(synced - rx_sync[::2].to(dev)) ** 2)) < 0.1,
+           "phase J symbol_sync real: the synchronized reference is not the received one")
+    # sync_data_sequences: 4-PAM at SpS 2, the reception 1.5 x the reference
+    pam = torch.as_tensor(rng.choice([-3.0, -1.0, 1.0, 3.0], size=(n_sym, 1)).astype(np.float32))
+    up = torch.zeros((2 * n_sym, 1))
+    up[::2] = pam
+    wave = fir_filter(pulse_shape("rrc", 2, 64, 0.2), up)
+    rx_pam = torch.roll(torch.cat([wave, wave[: n_sym]]), 37, 0)
+    rx_pam = rx_pam + 0.01 * torch.as_tensor(rng.normal(size=rx_pam.shape).astype(np.float32))
+    for ref_kind, ref in (("symbols", pam), ("signal", wave)):
+        cfg = SyncConfig(SpS=2, reference=ref_kind, syncMode="amp", rollOff=0.2, nFilterTaps=64)
+        _cuda_vs_cpu(f"sync_data_sequences {ref_kind}",
+                     lambda r, t, cfg=cfg: sync_data_sequences(r, t, cfg), (rx_pam, ref), 1e-5,
+                     dev)
+    cz_g = tsrc.cazac_sequence(n_sym, 3, device=dev)
+    cz_c = tsrc.cazac_sequence(n_sym, 3, device="cpu")
+    k = np.arange(n_sym, dtype=np.float64)
+    exact = torch.as_tensor(np.exp(-1j * np.pi * 3 * k * (k + 1) / n_sym))
+    cz_err = float((cz_g.cpu().to(torch.complex128) - exact).abs().max())
+    print(f"phase J cazac_sequence (N 2**16, M 3): CUDA == CPU "
+          f"{bool(torch.equal(cz_g.cpu(), cz_c))}, max |seq - float64 exact| {cz_err:.3e} "
+          "(tolerance 1e-6)")
+    _check(torch.equal(cz_g.cpu(), cz_c) and cz_err <= 1e-6, "phase J cazac_sequence")
+    ints = torch.as_tensor(rng.integers(0, 2**16, size=n_sym))
+    _cuda_vs_cpu("dec2bitarray / bitarray2dec", lambda a: (
+        dec2bitarray(a, 16), bitarray2dec(dec2bitarray(a, 16).T)), (ints,), 0.0, dev)
+    _check(torch.equal(bitarray2dec(dec2bitarray(ints.to(dev), 16).T).cpu(), ints.to(torch.int32)),
+           "phase J bit arrays do not round-trip")
+    _cuda_vs_cpu("set_power_for_par_ssfm", lambda a: set_power_for_par_ssfm(
+        a, [-2.0, 0.0, 2.0, 4.0, 6.0]), (cplx(n, 10),), 1e-6, dev)
+
+    # random functions, by their statistics on the card
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_draw = 2**24
+    for dist in ("uniform", "maxwell-boltzmann"):
+        sym = tsrc.symbol_source(gen, n_draw, 16, "qam", dist, 0.1)
+        px = tsrc.symbol_pmf(16, "qam", dist, 0.1)
+        c = tsrc.constellation(16, "qam")
+        c = torch.as_tensor((c / np.sqrt(np.sum(px * np.abs(c) ** 2))).astype(np.complex64),
+                            device=dev)
+        freq = torch.bincount(torch.argmin((sym[:, None] - c).abs(), dim=1), minlength=16)
+        rel = np.abs(freq.cpu().numpy() / n_draw / px - 1).max()
+        print(f"phase J symbol_source {dist}: largest |frequency / px - 1| {rel:.5f} over 16 "
+              f"points, 2**24 symbols (tolerance 0.01)")
+        _check(rel <= 0.01, f"phase J symbol_source {dist}: frequencies off px by {rel}")
+    sig_g = sig.to(dev)
+    awgn_cfg = tch.AWGNConfig(snr=12.0, Fs=2.0, B=1.0)
+    noise = tch.awgn(sig_g, gen, awgn_cfg) - sig_g
+    _stat("awgn noise variance", float(torch.mean(noise.abs() ** 2)),
+          2.0 * float(torch.mean(sig_g.abs() ** 2)) / 10**1.2)
+    zeros = torch.zeros(n, dtype=torch.complex64, device=dev)
+    acfg = tdev.ADCConfig(nBits=10, ENOB=6.0, AAF=False)
+    got = tdev.adc(zeros, acfg, gen) - tdev.adc(zeros, tdev.ADCConfig(nBits=10, ENOB=10,
+                                                                        AAF=False))
+    _stat("adc ENOB noise variance (per axis)", float(torch.var(got.real)),
+          4.0 / 12 * (2.0**-12 - 2.0**-20))
+    ramp = torch.linspace(-1.0, 1.0, n, device=dev)
+    # jitter of 200 sample periods on a ramp: the error is slope x jitter
+    got = tdev.adc(ramp, tdev.ADCConfig(nBits=16, ENOB=16, jitter=200.0, AAF=False), gen) \
+        - tdev.adc(ramp, tdev.ADCConfig(nBits=16, ENOB=16, AAF=False))
+    _stat("adc jitter error variance", float(torch.var(got[2000:-2000])), (200.0 * 2.0 / n) ** 2)
+    got = tdev.dac(ramp, tdev.DACConfig(nBits=12, ENOB=6.0, AIF=False), gen) \
+        - tdev.dac(ramp, tdev.DACConfig(nBits=12, ENOB=12, AIF=False))
+    _stat("dac ENOB noise variance", float(torch.var(got)), 4.0 / 12 * (2.0**-12 - 2.0**-24))
+    got = tdev.dac(ramp, tdev.DACConfig(nBits=16, ENOB=16, jitter=200.0, AIF=False), gen) \
+        - tdev.dac(ramp, tdev.DACConfig(nBits=16, ENOB=16, AIF=False))
+    _stat("dac jitter error variance", float(torch.var(got[2000:-2000])), (200.0 * 2.0 / n) ** 2)
+    edfa_cfg = tch.SSFMConfig(Ltotal=250, Lspan=50, hz=0.5, alpha=0.2, D=16, gamma=1.3,
+                              Fs=64e9, amp="edfa", NF=4.5, fusedLinear=True)
+    dark = tch.ssfm(torch.zeros(n, dtype=torch.complex64, device=dev), edfa_cfg, gen)
+    g, nf = 10.0, 10**0.45
+    p_ase = (g - 1) * (g * nf - 1) / (2 * (g - 1)) * sconst.h * edfa_cfg.Fc * edfa_cfg.Fs
+    _stat("ssfm edfa ASE power per span", float(torch.mean(dark.abs() ** 2)) / 5, p_ase)
+
+    # the scalar ssfm as a link: 2**20 samples, 5 x 50 km, hz 0.5
+    link = (0.03 * cplx(n, 1))[:, 0]
+    out = {}
+    for fused in (True, False):
+        cfg = tch.SSFMConfig(Ltotal=250, Lspan=50, hz=0.5, alpha=0.2, D=16, gamma=1.3,
+                             Fs=64e9, amp="ideal", fusedLinear=fused)
+        span = replace(cfg, Ltotal=50)
+        rel = _rel(tch.ssfm(link.to(dev), span), tch.ssfm(link, span))
+        tch.ssfm(link.to(dev), cfg)
+        y, s = _wall(lambda cfg=cfg: tch.ssfm(link.to(dev), cfg))
+        _check(bool(torch.isfinite(y).all()), "phase J ssfm: non-finite output")
+        print(f"phase J ssfm fusedLinear={fused}: one span CUDA vs CPU rel {rel:.3e} "
+              f"(tolerance {SPAN_REL:g}); 5 x 50 km warm {s * 1e3:.3f} ms, "
+              f"{n / s:.4e} samples/s ({smi})")
+        _check(rel <= SPAN_REL, f"phase J ssfm fusedLinear={fused}: rel {rel}")
+        out[fused] = s
+    return out
+
+
 def main():
     dev = phase_device()
     phase_build()
@@ -2488,19 +2985,29 @@ def main():
     t0 = time.perf_counter()
     path_h = run_imdd_path_h(dev)
     phase_s["path H"] = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30  # path I resets the peak
+    t0 = time.perf_counter()
+    path_i = run_dbp_path_i(dev)
+    phase_s["path I"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_single_pol(dev)
+    phase_s["phase J"] = time.perf_counter() - t0
     for name, sec in phase_s.items():
         print(f"phase time: {name} {sec:.1f} s")
-    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak_gib = max(peak_gib, torch.cuda.max_memory_allocated() / 2**30)
+    print(f"peak device memory: {peak_gib:.2f} GiB")
     failures = path_b["failures"] + path_c["failures"] + path_h["failures"]
     _check(not failures, "bounds against the JAX package failed:\n  " + "\n  ".join(failures))
 
     kernels = [
         dict(name="bps", route="cuda", source="opticommpy_torch/csrc/bps.cu",
              replaces="opticommpy_tpu/kernels/bps_pallas.py:165",
-             launches=launches["bps"], **report["bps"]),
+             launches=launches["bps"], path_i_launches=path_i["counts"]["bps"],
+             **report["bps"]),
         dict(name="mimo_eq", route="cuda", source="opticommpy_torch/csrc/mimo_eq.cu",
              replaces="opticommpy_tpu/kernels/mimo_pallas.py:227",
-             launches=launches["mimo_eq"], **report["mimo_eq"]),
+             launches=launches["mimo_eq"], path_i_launches=path_i["counts"]["mimo_eq"],
+             **report["mimo_eq"]),
         dict(name="mimo_eq_batch", route="cuda", source="opticommpy_torch/csrc/mimo_eq.cu",
              replaces="opticommpy_tpu/kernels/mimo_pallas.py:467",
              launches=wdm["da-rde/dd-lms"]["counts"]["mimo_eq_batch"],

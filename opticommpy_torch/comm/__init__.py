@@ -7,9 +7,17 @@ from opticommpy_torch.comm.modulation import (  # noqa: F401
     bit_map,
     demap,
     demodulate_gray,
+    detector,
     gray_code,
     gray_mapping,
     min_euclid,
     modulate_gray,
+    soft_estimator,
+    soft_mapper,
 )
-from opticommpy_torch.comm.sources import bit_source, prbs_generator  # noqa: F401
+from opticommpy_torch.comm.sources import (  # noqa: F401
+    bit_source,
+    cazac_sequence,
+    prbs_generator,
+    symbol_source,
+)

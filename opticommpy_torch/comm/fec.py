@@ -18,7 +18,7 @@
 - Hamming codes, ALIST I/O and the Gallager ensemble are host-side NumPy
   helpers around the same encoder and decoder.
 
-Not ported yet (``ROADMAP.md`` queue 1, item 13): ``plot_binary_matrix``.
+Not ported yet (``ROADMAP.md`` queue 1, item 3): ``plot_binary_matrix``.
 """
 
 import warnings

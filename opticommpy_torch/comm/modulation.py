@@ -1,11 +1,18 @@
-"""Digital modulation: constellations, Gray mapping, (de)mapping.
+"""Digital modulation: constellations, Gray mapping, (de)mapping, symbol
+detection and soft mapping.
 
-Port of ``opticommpy_tpu/comm/modulation.py``. Constellation generation is
-the same host NumPy code; the per-symbol operations run on tensors.
+Port of ``opticommpy_tpu/comm/modulation.py`` (not yet ``mlse``).
+Constellation generation is the same host NumPy code; the per-symbol
+operations run on tensors: the detector as one broadcast distance tensor,
+the soft estimator as matmuls against the bit map.
 """
 
 import numpy as np
 import torch
+
+from opticommpy_torch.ops.signal import pnorm
+from opticommpy_torch.utils.rng import as_device_tensor
+from opticommpy_torch.utils.units import llr2bit_prob
 
 __all__ = [
     "gray_code",
@@ -20,6 +27,9 @@ __all__ = [
     "demap",
     "modulate_gray",
     "demodulate_gray",
+    "detector",
+    "soft_estimator",
+    "soft_mapper",
 ]
 
 
@@ -167,3 +177,61 @@ def demodulate_gray(symb, M, const_type):
     symb = torch.as_tensor(symb)
     const = torch.as_tensor(gray_mapping(M, const_type), device=symb.device)
     return demap(min_euclid(symb, const), bit_map(M, const_type))
+
+
+def detector(r, noise_var, const_symb, px=None, rule="MAP"):
+    """MAP/ML symbol detection (modulation.py:411), one broadcast distance
+    tensor over the constellation. Returns (decided symbols, indices)."""
+    r = as_device_tensor(r)
+    const_symb = torch.as_tensor(const_symb).to(r.device)
+    M = const_symb.shape[0]
+    if px is None or rule == "ML":
+        px = torch.ones(M, device=r.device) / M
+    px = torch.as_tensor(px).to(device=r.device, dtype=torch.float32)
+    d2 = torch.abs(r[..., None] - const_symb) ** 2
+    if rule == "MAP":
+        ind = torch.argmax(-d2 / noise_var + torch.log(px), dim=-1)
+    elif rule == "ML":
+        ind = torch.argmin(d2, dim=-1)
+    else:
+        raise ValueError("Detection rule should be either MAP or ML")
+    return const_symb[ind], ind
+
+
+def _real_matmul(a, b):
+    """``a @ b`` for real ``a`` and real or complex ``b`` (the real and
+    imaginary parts as two real products)."""
+    if b.is_complex():
+        return torch.complex(a @ b.real, a @ b.imag)
+    return a @ b
+
+
+def soft_estimator(llr, bitmap, const_symb):
+    """Soft symbol mean and variance from bit LLRs (modulation.py:522).
+
+    The symbol probabilities come from two matmuls in the log domain,
+    ``log P(m) = log(Pb1) @ B^T + log(Pb0) @ (1 - B)^T``, with the JAX
+    package's clips (LLRs to +-300, bit probabilities to [1e-30, 1]). The
+    constellation takes the LLRs' precision, as a float64 NumPy
+    constellation takes float32 in the JAX package.
+    """
+    llr = torch.clamp(as_device_tensor(llr), -300.0, 300.0)
+    dev = llr.device
+    bitmap = torch.as_tensor(np.asarray(bitmap), device=dev).to(torch.float32)
+    const_symb = torch.as_tensor(const_symb).to(dev)
+    const_symb = const_symb.to(llr.dtype.to_complex() if const_symb.is_complex() else llr.dtype)
+    pb1 = torch.clamp(llr2bit_prob(llr), 1e-30, 1.0)
+    pb0 = torch.clamp(1.0 - pb1, 1e-30, 1.0)
+    log_p = torch.log(pb1) @ bitmap.T + torch.log(pb0) @ (1.0 - bitmap.T)
+    prob = torch.exp(log_p)
+    soft_mean = _real_matmul(prob, const_symb)
+    soft_var = prob @ (torch.abs(const_symb) ** 2) - torch.abs(soft_mean) ** 2
+    return soft_mean, soft_var
+
+
+def soft_mapper(llr, M, const_type):
+    """Interleaved bit LLRs to soft symbol estimates (modulation.py:484)."""
+    b = int(np.log2(M))
+    llr = as_device_tensor(llr)
+    const = pnorm(torch.as_tensor(gray_mapping(M, const_type), device=llr.device))
+    return soft_estimator(llr.reshape(-1, b), bit_map(M, const_type), const)

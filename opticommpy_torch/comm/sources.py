@@ -4,7 +4,9 @@ The constellation and its probability mass function are the same host
 NumPy code; symbol indices and random bits are drawn from an explicit
 ``torch.Generator``. The PRBS register recurrence is computed on the host
 in a few NumPy steps (see :func:`prbs_generator`) and equals the JAX
-package's scan bit for bit.
+package's scan bit for bit. :func:`cazac_sequence` takes its phase in
+float64 (OptiCommPy's precision), where the JAX package rounds it to
+float32.
 """
 
 import numpy as np
@@ -18,8 +20,8 @@ from opticommpy_torch.comm.modulation import (
 )
 from opticommpy_torch.utils.rng import default_device, ensure_generator
 
-__all__ = ["bit_source", "prbs_generator", "constellation", "draw_symbol_indices",
-           "symbol_pmf"]
+__all__ = ["bit_source", "prbs_generator", "symbol_source", "cazac_sequence", "constellation",
+           "draw_symbol_indices", "symbol_pmf"]
 
 # LFSR taps per PRBS order (x^a + x^b + 1), as in the reference sources.py:104-113
 _PRBS_TAPS = {
@@ -137,3 +139,41 @@ def draw_symbol_indices(generator, px, shape):
     n = int(np.prod(shape))
     idx = torch.multinomial(p, n, replacement=True, generator=generator)
     return idx.reshape(shape)
+
+
+def symbol_source(generator_or_seed, n_symbols=1000, M=4, const_type="qam",
+                  dist="uniform", shaping_factor=0.0, px=None, device=None):
+    """Random symbols drawn from a (possibly shaped) constellation
+    (sources.py:137), normalized to unit average energy under ``px``.
+
+    ``generator_or_seed`` is a ``torch.Generator`` (its device is the
+    symbols') or an integer seed for a new generator on ``device`` (the CUDA
+    device when none is named). complex64, or float32 for PAM, as the JAX
+    package returns them.
+    """
+    gen = ensure_generator(generator_or_seed, device)
+    const = constellation(M, const_type)
+    if px is None:
+        px = symbol_pmf(M, const_type, dist, shaping_factor)
+    px = np.asarray(px).reshape(-1)
+    const = const / np.sqrt(np.sum(px * np.abs(const) ** 2))
+    const = const.astype(np.complex64 if np.iscomplexobj(const) else np.float32)
+    idx = draw_symbol_indices(gen, px, (n_symbols,))
+    return torch.as_tensor(const, device=gen.device)[idx]
+
+
+def cazac_sequence(N, M=1, device=None):
+    """Zadoff-Chu CAZAC sequence of length N with root M (sources.py:215),
+    ``exp(-j*pi*M*n*(n+1)/N)``, complex64 on ``device`` (the CUDA device when
+    none is named).
+
+    The integer ``M*n*(n+1)`` is reduced modulo 2N and the phase taken in
+    float64, so every element is within a complex64 rounding of the exact
+    value at any N.
+    """
+    if np.gcd(M, N) != 1:
+        raise ValueError("The root (M) must be coprime with the sequence length (N).")
+    n = np.arange(N, dtype=np.int64)
+    k = (n * (n + 1)) % (2 * N) * (M % (2 * N)) % (2 * N)
+    seq = np.exp(-1j * np.pi * k / N).astype(np.complex64)
+    return torch.as_tensor(seq, device=default_device(device))

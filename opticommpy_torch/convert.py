@@ -32,6 +32,7 @@ def port_config_classes():
                                                      FFWClockRecoveryConfig)
     from opticommpy_torch.dsp.equalization import (DFEConfig, EDCConfig, FFEConfig,
                                                    MIMOEqualizerConfig, VolterraConfig)
+    from opticommpy_torch.dsp.synchronization import SyncConfig
     from opticommpy_torch.models import config as model_config
     from opticommpy_torch.models.tx import PAMTxConfig, WDMTxConfig
     from opticommpy_torch.pipelines import CoherentDSPConfig, IMDDConfig
@@ -40,7 +41,7 @@ def port_config_classes():
                if dataclasses.is_dataclass(obj) and isinstance(obj, type)]
     classes += [WDMTxConfig, EDCConfig, MIMOEqualizerConfig, CPRConfig,
                 CoherentDSPConfig, ClockRecoveryConfig, FFWClockRecoveryConfig, LDPCConfig,
-                DFEConfig, FFEConfig, VolterraConfig, PAMTxConfig, IMDDConfig]
+                DFEConfig, FFEConfig, VolterraConfig, PAMTxConfig, IMDDConfig, SyncConfig]
     return {cls.__name__: cls for cls in classes}
 
 

@@ -1,5 +1,5 @@
-"""Receiver DSP: equalization, carrier and clock recovery (port of
-``opticommpy_tpu/dsp``)."""
+"""Receiver DSP: equalization, carrier and clock recovery, sequence
+synchronization (port of ``opticommpy_tpu/dsp``)."""
 
 from opticommpy_torch.dsp.carrier_recovery import (  # noqa: F401
     CPRConfig,
@@ -28,9 +28,14 @@ from opticommpy_torch.dsp.equalization import (  # noqa: F401
     dfe,
     edc,
     ffe,
+    manakov_dbp,
     mimo_adapt_equalizer,
     mimo_adapt_equalizer_batch,
     mimo_apply,
     mimo_apply_fused,
     volterra,
+)
+from opticommpy_torch.dsp.synchronization import (  # noqa: F401
+    SyncConfig,
+    sync_data_sequences,
 )

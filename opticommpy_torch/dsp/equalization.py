@@ -1,10 +1,13 @@
-"""Static and adaptive equalization: EDC, the N x N MIMO adaptive equalizer
-and the SISO DFE / FFE / Volterra equalizers.
+"""Static and adaptive equalization: EDC, Manakov digital backpropagation,
+the N x N MIMO adaptive equalizer and the SISO DFE / FFE / Volterra
+equalizers.
 
 Port of ``opticommpy_tpu/dsp/equalization.py``, part A:
 
 - :func:`edc` — frequency-domain CD compensation (one FFT convolution, or
   overlap-save for very long signals or an explicit ``Nfft``).
+- :func:`manakov_dbp` — digital backpropagation: the Manakov span of
+  :mod:`opticommpy_torch.models.channels` run with inverted signs.
 - :func:`mimo_adapt_equalizer` — multi-stage training (per-stage rule and
   step, ``numIter`` pre-convergence passes of the first stage, taps and the
   RLS state Sd chained across stages) with the rules nlms, dd-lms, cma,
@@ -34,7 +37,7 @@ a kernel, as the JAX functions run their scans; the kernels' entries are
 
 Not ported yet (they raise ``NotImplementedError``): ``runWL``,
 ``blockUpdate > 1`` and, in the single-signal trainer, ``storeCoeff``
-(ROADMAP.md queue 1, item 8).
+(ROADMAP.md queue 1, item 2, the per-symbol scans).
 """
 
 import functools
@@ -49,11 +52,13 @@ from opticommpy_torch.kernels import dfe as dfe_k
 from opticommpy_torch.kernels import mimo_eq, rls
 from opticommpy_torch.kernels import volterra as volterra_k
 from opticommpy_torch.kernels.bps import _square_qam_levels
-from opticommpy_torch.models.channels import fiber_coefficients
+from opticommpy_torch.models.channels import _manakov_span, _to_columns, fiber_coefficients
+from opticommpy_torch.models.config import SSFMConfig
 from opticommpy_torch.ops.filtering import overlap_save
+from opticommpy_torch.ops.signal import fftfreq
 from opticommpy_torch.utils.rng import as_device_tensor, default_device
 
-__all__ = ["edc", "EDCConfig", "mimo_adapt_equalizer", "mimo_adapt_equalizer_batch",
+__all__ = ["edc", "EDCConfig", "manakov_dbp", "mimo_adapt_equalizer", "mimo_adapt_equalizer_batch",
            "MIMOEqualizerConfig", "MIMOEqualizer", "mimo_apply", "mimo_apply_fused",
            "DFEConfig", "FFEConfig", "VolterraConfig", "dfe", "ffe", "volterra"]
 
@@ -139,6 +144,35 @@ class MIMOEqualizerConfig:
     backend: str = "scan"
 
 
+def manakov_dbp(e_in, config: SSFMConfig):
+    """Manakov-equation digital backpropagation (reference
+    equalization.py:976).
+
+    The forward Manakov span with inverted signs: per span, first undo the
+    amplifier gain (``exp(-alpha/2*Lspan)``, for amp 'edfa' or 'ideal'),
+    then back-propagate with ``+alpha/2 - j*beta2/2*w^2`` and the nonlinear
+    rotation negated. Always complex64, whatever ``config.prec`` says, as
+    in the JAX package. ``e_in`` is (N, 2*k), columns alternating x/y; a
+    tensor keeps its device, any other input goes to the CUDA device.
+    """
+    if config.Fs is None:
+        raise ValueError("Simulation sampling frequency (Fs) not provided.")
+    e_in = as_device_tensor(e_in).to(torch.complex64)
+    n = e_in.shape[0]
+    e = torch.stack([e_in[:, 0::2].T, e_in[:, 1::2].T]).contiguous()
+    alpha, beta2 = fiber_coefficients(config.alpha, config.D, config.Fc)
+    n_spans = int(np.floor(config.Ltotal / config.Lspan))
+    w = (2 * np.pi * config.Fs) * fftfreq(n, 1.0, torch.float32, e.device)
+    lin_arg = torch.complex(torch.full_like(w, alpha / 2), -((beta2 / 2) * (w * w)))
+    # the gain undone in float32, as jnp.exp of the weakly typed exponent
+    loss = float(np.exp(np.float32(-alpha / 2 * config.Lspan)))
+    for _ in range(n_spans):
+        if config.amp in ("edfa", "ideal"):
+            e = e * loss
+        e = _manakov_span(e, lin_arg, config.Lspan, config, nl_sign=-1.0)
+    return _to_columns(e)
+
+
 _KERNEL_STAGE_ALGS = ("nlms", "dd-lms", "cma", "rde", "da-rde")
 _RLS_ALGS = ("rls", "dd-rls")
 
@@ -151,7 +185,7 @@ _KERNEL_ALG = {"nlms": "nlms", "dd-lms": "lms", "cma": "cma", "rde": "rde",
 def _unported(what):
     return NotImplementedError(
         f"mimo_adapt_equalizer: {what} is not ported yet (ROADMAP.md queue 1, "
-        "item 8)")
+        "item 2, the per-symbol scans)")
 
 
 def _check_config(config):

@@ -2,7 +2,12 @@
 ``opticommpy_tpu/models``)."""
 
 from opticommpy_torch.models import channels, config, devices, tx  # noqa: F401
-from opticommpy_torch.models.channels import linear_fiber_channel, manakov_ssf  # noqa: F401
+from opticommpy_torch.models.channels import (  # noqa: F401
+    awgn,
+    linear_fiber_channel,
+    manakov_ssf,
+    ssfm,
+)
 from opticommpy_torch.models.config import (  # noqa: F401
     ADCConfig,
     AWGNConfig,
@@ -18,9 +23,11 @@ from opticommpy_torch.models.config import (  # noqa: F401
     SSFMConfig,
 )
 from opticommpy_torch.models.devices import (  # noqa: F401
+    adc,
     balanced_pd,
     basic_laser_model,
     coherent_receiver,
+    dac,
     edfa,
     iqm,
     mzm,
@@ -28,6 +35,8 @@ from opticommpy_torch.models.devices import (  # noqa: F401
     pbs,
     pdm_coherent_receiver,
     photodiode,
+    pm,
+    voa,
 )
 from opticommpy_torch.models.tx import (  # noqa: F401
     PAMTxConfig,

@@ -1,8 +1,8 @@
-"""Fiber channels: the linear fiber and Manakov split-step Fourier
-propagation.
+"""Fiber channels: the linear fiber, the scalar and the Manakov split-step
+Fourier propagation, and the AWGN channel.
 
 Port of ``opticommpy_tpu/models/channels.py`` (:func:`linear_fiber_channel`,
-:func:`manakov_ssf`). Both
+:func:`ssfm`, :func:`manakov_ssf`, :func:`awgn`). In the Manakov solver both
 polarizations and every signal of a batch are stacked in one (2, B, N)
 field, so each FFT is one batched ``torch.fft`` call over the time axis
 (cuFFT on the card). The fixed-step path (``nlprMethod=False``) knows its
@@ -10,8 +10,10 @@ step schedule in advance; with ``fusedLinear`` it merges adjacent linear
 half-steps and carries the field in the frequency domain (one FFT pair per
 step). The adaptive path (``nlprMethod=True``) sizes each step from the
 peak nonlinear phase rotation and iterates the trapezoidal correction to
-``tol``. ASE noise comes from one ``torch.Generator`` whose draws follow
-each other span by span.
+``tol``. The span loop takes the sign of the nonlinear operator, so
+digital backpropagation (:func:`opticommpy_torch.dsp.equalization.manakov_dbp`)
+runs the same span with ``nl_sign=-1``. ASE noise comes from one
+``torch.Generator`` whose draws follow each other span by span.
 """
 
 import math
@@ -20,13 +22,15 @@ import numpy as np
 import scipy.constants as sconst
 import torch
 
-from opticommpy_torch.models.config import EDFAConfig, LinearFiberConfig, SSFMConfig
+from opticommpy_torch.models.config import (AWGNConfig, EDFAConfig, LinearFiberConfig,
+                                            SSFMConfig)
 from opticommpy_torch.models.devices import edfa
-from opticommpy_torch.ops.signal import fftfreq
-from opticommpy_torch.utils.rng import ensure_generator
+from opticommpy_torch.ops.noise import gaussian_complex_noise, gaussian_noise
+from opticommpy_torch.ops.signal import fftfreq, sig_pow
+from opticommpy_torch.utils.rng import as_device_tensor, ensure_generator
 
-__all__ = ["linear_fiber_channel", "manakov_ssf", "nlin_phase_rot",
-           "convergence_condition", "fiber_coefficients"]
+__all__ = ["linear_fiber_channel", "ssfm", "manakov_ssf", "nlin_phase_rot",
+           "convergence_condition", "awgn", "fiber_coefficients"]
 
 
 def fiber_coefficients(alpha_db_km, D_ps_nm_km, fc_hz):
@@ -95,16 +99,88 @@ def _ifft(x):
     return torch.fft.ifft(x, dim=-1)
 
 
-def _manakov_step(e, pch, lin_op, hz_, cfg: SSFMConfig):
+def _nl_rot(et, gamma_, hz):
+    """The scalar NLSE's nonlinear step, ``et * exp(1j*gamma*|et|^2*hz)``,
+    with the complex power ``et*conj(et)`` as the JAX package forms it."""
+    return et * torch.exp(1j * gamma_ * (et * et.conj()) * hz)
+
+
+def ssfm(e_in, config: SSFMConfig, generator=None):
+    """Symmetric split-step Fourier for the scalar NLSE (reference
+    channels.py:112).
+
+    Fixed step ``hz``: ``floor(Ltotal/Lspan)`` spans of ``floor(Lspan/hz)``
+    steps, the nonlinear step ``exp(1j*gamma*|E|^2*hz)`` (no 8/9 factor, no
+    trapezoid), with per-span EDFA, ideal (gain ``exp(alpha/2*n_steps*hz)``,
+    not ``Lspan``) or no amplification. ``fusedLinear`` merges adjacent
+    linear half-steps (one FFT pair per step). Accepts (N,) or (N, B); each
+    column propagates on its own. The EDFA noise comes from ``generator``
+    (seed 0 on the field's device when None), span after span; the JAX
+    package folds the span index into its key. A tensor keeps its device;
+    any other input goes to the CUDA device.
+    """
+    if config.Fs is None:
+        raise ValueError("Simulation sampling frequency (Fs) not provided.")
+    cdtype = _solver_cdtype(config)
+    real_dtype = torch.float64 if cdtype == torch.complex128 else torch.float32
+    e_in = as_device_tensor(e_in).to(cdtype)
+    squeeze = e_in.ndim == 1
+    if squeeze:
+        e_in = e_in[:, None]
+    e = e_in.T.contiguous()  # (B, N): time on the last axis
+    n = e.shape[-1]
+
+    alpha, beta2 = fiber_coefficients(config.alpha, config.D, config.Fc)
+    gamma_, hz = config.gamma, config.hz
+    n_spans = int(np.floor(config.Ltotal / config.Lspan))
+    n_steps = int(np.floor(config.Lspan / hz))
+    w = (2 * np.pi * config.Fs) * fftfreq(n, 1.0, real_dtype, e.device)
+    lin_arg = torch.complex(torch.full_like(w, -(alpha / 2)),
+                            (beta2 / 2) * (w * w)).to(cdtype)
+    lin_half = torch.exp(lin_arg * (hz / 2))
+    amp_cfg = EDFAConfig(G=config.alpha * config.Lspan, NF=config.NF,
+                         Fc=config.Fc, Fs=config.Fs)
+    if config.amp == "edfa":
+        generator = ensure_generator(generator, e.device)
+
+    if config.fusedLinear:
+        lin_full = torch.exp(lin_arg * hz)
+
+        def span_steps(e):
+            ef = _fft(e) * lin_half
+            for _ in range(n_steps - 1):
+                ef = _fft(_nl_rot(_ifft(ef), gamma_, hz)) * lin_full
+            return _ifft(_fft(_nl_rot(_ifft(ef), gamma_, hz)) * lin_half)
+    else:
+        def span_steps(e):
+            ef = _fft(e)
+            for _ in range(n_steps):
+                ef = _fft(_nl_rot(_ifft(ef * lin_half), gamma_, hz)) * lin_half
+            return _ifft(ef)
+
+    for _ in range(n_spans):
+        e = span_steps(e)
+        if config.amp == "edfa":
+            e = edfa(e, amp_cfg, generator)
+        elif config.amp == "ideal":
+            e = e * float(np.exp(alpha / 2 * n_steps * hz))
+    out = e.T
+    return out[:, 0] if squeeze else out
+
+
+def _manakov_step(e, pch, lin_op, hz_, cfg: SSFMConfig, nl_sign=1.0):
     """One symmetric split step with the trapezoidal nonlinear correction.
 
-    ``pch`` is the start-of-step power (trapezoid anchor).
+    ``pch`` is the start-of-step power (trapezoid anchor); ``nl_sign`` the
+    sign of the nonlinear rotation (``nl_sign * 1j`` is exactly ``1j`` for
+    the forward channel, so its rounding is the same as without it).
     """
     e_hd = _ifft(_fft(e) * lin_op)
+    j_sign = nl_sign * 1j
 
     def one_iter(e_conv):
         phi = nlin_phase_rot(e_conv[0], e_conv[1], pch, cfg.gamma)
-        return _ifft(_fft(e_hd * torch.exp(1j * (phi * hz_))) * lin_op)
+        return _ifft(_fft(e_hd * torch.exp(j_sign * (phi * hz_))) * lin_op)
 
     if cfg.trapIters > 0:
         e_fd = e
@@ -121,8 +197,11 @@ def _manakov_step(e, pch, lin_op, hz_, cfg: SSFMConfig):
     return e_fd
 
 
-def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig):
-    """Propagate the (2, B, N) field through one span."""
+def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0):
+    """Propagate the (2, B, N) field through one span; ``nl_sign=-1``
+    inverts the nonlinear rotation (digital backpropagation, reference
+    equalization.py:976)."""
+    j_sign = nl_sign * 1j
     if not cfg.nlprMethod:
         n_full = int(np.floor(span_len / cfg.hz))
         hz_last = span_len - n_full * cfg.hz
@@ -142,7 +221,7 @@ def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig):
                 et = _ifft(ef)
                 pch = torch.sum((et * et.conj()).real, dim=0)
                 # trapezoid anchor = current power: (8/9)*gamma*pch
-                return _fft(et * torch.exp(1j * (((8 / 9) * gamma_ * hz_) * pch))) * lin_gap
+                return _fft(et * torch.exp(j_sign * (((8 / 9) * gamma_ * hz_) * pch))) * lin_gap
 
             n_uni = 0
             while (n_uni < len(sizes) and sizes[n_uni] == cfg.hz
@@ -158,7 +237,7 @@ def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig):
 
         def step_with(e, hz_, lin_op):
             pch = torch.sum(torch.abs(e) ** 2, dim=0)
-            return _manakov_step(e, pch, lin_op, hz_, cfg)
+            return _manakov_step(e, pch, lin_op, hz_, cfg, nl_sign)
 
         n_uni = int(np.sum(sizes == cfg.hz))
         lin_half = torch.exp(lin_arg * (cfg.hz / 2))
@@ -179,7 +258,7 @@ def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig):
         hz_cand = cfg.maxNlinPhaseRot / torch.max(phi_rot)
         hz_ = torch.minimum(hz_cand, span - z)
         lin_op = torch.exp(lin_arg * (hz_ / 2))
-        e = _manakov_step(e, pch, lin_op, hz_, cfg)
+        e = _manakov_step(e, pch, lin_op, hz_, cfg, nl_sign)
         z = z + hz_
     return e
 
@@ -239,3 +318,23 @@ def manakov_ssf(e_in, config: SSFMConfig, generator=None, save_all_spans=False):
     if save_all_spans:
         return out, torch.stack(span_fields)
     return out
+
+
+def awgn(sig, generator, config: AWGNConfig = AWGNConfig(), device=None):
+    """AWGN channel calibrated to an SNR in the signal bandwidth (reference
+    channels.py:522): noise variance ``(Fs/B) * sig_pow(sig) / SNR_lin``,
+    complex or (``complexNoise=False``) real.
+
+    ``generator`` is a ``torch.Generator`` or an integer seed for a new
+    generator on the signal's device. A tensor keeps its device, or goes
+    to ``device`` when one is named; any other input goes to ``device``, the
+    CUDA device when none is named.
+    """
+    sig = as_device_tensor(sig, device)
+    generator = ensure_generator(generator, sig.device)
+    var = (config.Fs / config.B) * (sig_pow(sig) / 10 ** (config.snr / 10))
+    if config.complexNoise:
+        noise = gaussian_complex_noise(generator, sig.shape, var)
+    else:
+        noise = gaussian_noise(generator, sig.shape, var / 2)
+    return sig + noise.to(sig.device)

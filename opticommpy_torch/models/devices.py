@@ -1,10 +1,13 @@
-"""Optoelectronic device models: modulators, receivers, amplifiers, laser.
+"""Optoelectronic device models: modulators, receivers, amplifiers, laser,
+converters.
 
-Port of ``opticommpy_tpu/models/devices.py`` (the devices of the coherent
-main path). Stochastic devices take a ``torch.Generator``; with none they
-draw from a generator seeded 0 on the input's device, as the JAX functions
-default to ``PRNGKey(0)``. One generator is passed down a receiver, so its
-draws follow one another in a single stream.
+Port of ``opticommpy_tpu/models/devices.py``. Stochastic devices take a
+``torch.Generator``; with none they draw from a generator seeded 0 on the
+input's device, as the JAX functions default to ``PRNGKey(0)``. One
+generator is passed down a receiver, so its draws follow one another in a
+single stream. Where the JAX package splits one key several ways (the
+ADC's and DAC's I jitter, Q jitter and ENOB noise), the port draws the
+parts from the one generator in that order.
 """
 
 import math
@@ -13,7 +16,9 @@ import scipy.constants as sconst
 import torch
 
 from opticommpy_torch.models.config import (
+    ADCConfig,
     CoherentFrontendConfig,
+    DACConfig,
     EDFAConfig,
     IQMConfig,
     LaserConfig,
@@ -24,14 +29,17 @@ from opticommpy_torch.models.config import (
 from opticommpy_torch.ops.filtering import fir_filter, lowpass_fir
 from opticommpy_torch.ops.modulator import calc_mzm, calc_pm
 from opticommpy_torch.ops.noise import gaussian_complex_noise, gaussian_noise, phase_noise
-from opticommpy_torch.ops.signal import delay_signal, iq_mixing
-from opticommpy_torch.utils.rng import ensure_generator
+from opticommpy_torch.ops.signal import (clock_sampling_interp, delay_signal, iq_mixing,
+                                         quantizer)
+from opticommpy_torch.utils.rng import as_device_tensor, ensure_generator
 from opticommpy_torch.utils.units import dbm2w
 
 __all__ = [
+    "pm",
     "mzm",
     "iqm",
     "pbs",
+    "voa",
     "photodiode",
     "balanced_pd",
     "optical_hybrid_2x4",
@@ -39,7 +47,17 @@ __all__ = [
     "pdm_coherent_receiver",
     "edfa",
     "basic_laser_model",
+    "adc",
+    "dac",
 ]
+
+
+def pm(e_in, u, v_pi):
+    """Optical phase modulator (reference devices.py:56): ``E_in *
+    exp(j*pi*u/Vpi)``. A tensor keeps its device; any other input goes to
+    the CUDA device; ``u`` follows ``e_in``."""
+    e_in = as_device_tensor(e_in)
+    return calc_pm(e_in, v_pi, torch.as_tensor(u).to(e_in.device))
 
 
 def mzm(e_in, u, config: MZMConfig = MZMConfig()):
@@ -73,6 +91,11 @@ def pbs(e, theta=0.0):
         device=e.device, dtype=e.dtype)
     out = e @ rot
     return out[:, 0], out[:, 1]
+
+
+def voa(e, att_db=0.0):
+    """Variable optical attenuator (reference devices.py:263)."""
+    return as_device_tensor(e) * 10 ** (-att_db / 20)
 
 
 def photodiode(e, config: PhotodiodeConfig = None, generator=None):
@@ -236,3 +259,84 @@ def basic_laser_model(config: LaserConfig = None, generator=None, device=None):
     else:
         fo = 0.0
     return torch.sqrt(dbm2w(config.P) + delta_p) * torch.exp(1j * (fo + pn))
+
+
+def _converter_input(sig_in, generator, device):
+    """(signal as (N, M), squeezed?, generator): a tensor keeps its device,
+    or goes to ``device``; any other input goes to ``device``, the CUDA
+    device when none is named. The generator defaults to seed 0 there."""
+    sig_in = as_device_tensor(sig_in, device)
+    squeeze = sig_in.ndim == 1
+    if squeeze:
+        sig_in = sig_in[:, None]
+    return sig_in, squeeze, ensure_generator(generator, sig_in.device)
+
+
+def _enob_noise(out, generator, scale, n_bits, enob):
+    """The extra noise of an ENOB below nBits: variance
+    ``scale^2/12 * (2^-2ENOB - 2^-2nBits)``, per axis of a complex output."""
+    pn_extra = scale**2 / 12 * (2.0 ** (-2 * enob) - 2.0 ** (-2 * n_bits))
+    if out.is_complex():
+        return out + gaussian_complex_noise(generator, out.shape, 2 * pn_extra).to(out.device)
+    return out + gaussian_noise(generator, out.shape, pn_extra).to(out.device)
+
+
+def adc(sig_in, config: ADCConfig = ADCConfig(), generator=None, device=None):
+    """ADC (reference devices.py:793): anti-aliasing filter, resampling to
+    ``outFs`` with sampling jitter, clipping to [Vmin, Vmax], ``nBits``
+    quantization, the output filter, then the extra noise of an ENOB below
+    nBits. The I jitter, Q jitter and ENOB noise are drawn from
+    ``generator`` in that order (seed 0 on the signal's device when None).
+    """
+    sig_in, squeeze, gen = _converter_input(sig_in, generator, device)
+    if config.AAF:
+        n_taps = min(sig_in.shape[0], config.N)
+        hi = lowpass_fir(config.outFs / 2, config.inFs, n_taps)
+        ho = lowpass_fir(config.outFs / 2, config.outFs, n_taps)
+        sig_in = fir_filter(hi, sig_in)
+
+    def convert(x):
+        x = clock_sampling_interp(x, config.inFs, config.outFs, config.jitter, gen)
+        x = torch.clamp(x, config.Vmin, config.Vmax)
+        return quantizer(x, config.nBits, config.Vmax, config.Vmin)
+
+    if sig_in.is_complex():
+        re = convert(sig_in.real)
+        out = torch.complex(re, convert(sig_in.imag))
+    else:
+        out = convert(sig_in)
+    if config.AAF:
+        out = fir_filter(ho, out)
+    if config.nBits > config.ENOB:
+        out = _enob_noise(out, gen, config.Vmax - config.Vmin, config.nBits, config.ENOB)
+    return out[:, 0] if squeeze else out
+
+
+def dac(sig_in, config: DACConfig = DACConfig(), generator=None, device=None):
+    """DAC (reference devices.py:912): ``nBits`` quantization between the
+    data's own extremes, resampling to ``outFs`` with sampling jitter, the
+    anti-imaging filter, the extra noise of an ENOB below nBits, then
+    scaling by ``Vpp / (v_max - v_min)``. The I jitter, Q jitter and ENOB
+    noise are drawn from ``generator`` in that order (seed 0 on the
+    signal's device when None).
+    """
+    sig_in, squeeze, gen = _converter_input(sig_in, generator, device)
+    if sig_in.is_complex():
+        v_max = torch.maximum(torch.max(sig_in.real), torch.max(sig_in.imag))
+        v_min = torch.minimum(torch.min(sig_in.real), torch.min(sig_in.imag))
+        re = clock_sampling_interp(quantizer(sig_in.real, config.nBits, v_max, v_min),
+                                   config.inFs, config.outFs, config.jitter, gen)
+        im = clock_sampling_interp(quantizer(sig_in.imag, config.nBits, v_max, v_min),
+                                   config.inFs, config.outFs, config.jitter, gen)
+        out = torch.complex(re, im)
+    else:
+        v_max, v_min = torch.max(sig_in), torch.min(sig_in)
+        out = clock_sampling_interp(quantizer(sig_in, config.nBits, v_max, v_min),
+                                    config.inFs, config.outFs, config.jitter, gen)
+    if config.AIF:
+        n_taps = min(out.shape[0], config.N)
+        out = fir_filter(lowpass_fir(config.outFs / 2, config.outFs, n_taps), out)
+    if config.nBits > config.ENOB:
+        out = _enob_noise(out, gen, float(v_max - v_min), config.nBits, config.ENOB)
+    out = out * (torch.full_like(v_max, config.Vpp) / (v_max - v_min))
+    return out[:, 0] if squeeze else out

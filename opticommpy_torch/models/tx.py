@@ -1,7 +1,7 @@
 """Optical transmitters: the WDM pol-mux coherent Tx and the PAM IM-DD Tx.
 
 Port of ``opticommpy_tpu/models/tx.py`` (:func:`simple_wdm_tx`,
-:func:`pam_transmitter`). The whole (nChannels, nPolModes) grid of signals
+:func:`pam_transmitter`, :func:`set_power_for_par_ssfm`). The whole (nChannels, nPolModes) grid of signals
 is shaped, modulated, shifted onto the WDM grid and summed as batched
 tensor ops. Each Tx is split into its random draws (:func:`wdm_tx_draw`,
 :func:`pam_tx_draw`) and a deterministic build (:func:`wdm_tx_build`,
@@ -21,12 +21,13 @@ from opticommpy_torch.models.config import IQMConfig, MZMConfig
 from opticommpy_torch.models.devices import iqm, mzm
 from opticommpy_torch.ops.filtering import fir_filter, pulse_shape
 from opticommpy_torch.ops.noise import phase_noise
-from opticommpy_torch.ops.signal import upsample
-from opticommpy_torch.utils.rng import ensure_generator
+from opticommpy_torch.ops.signal import signal_power, upsample
+from opticommpy_torch.utils.rng import as_device_tensor, ensure_generator
 from opticommpy_torch.utils.units import dbm2w
 
 __all__ = ["WDMTxConfig", "PAMTxConfig", "simple_wdm_tx", "wdm_freq_grid", "wdm_tx_draw",
-           "wdm_tx_build", "pam_transmitter", "pam_tx_draw", "pam_tx_build"]
+           "wdm_tx_build", "pam_transmitter", "pam_tx_draw", "pam_tx_build",
+           "set_power_for_par_ssfm"]
 
 
 @dataclass(frozen=True)
@@ -229,3 +230,24 @@ def pam_transmitter(generator_or_seed, config: PAMTxConfig = PAMTxConfig(), devi
     if config.nPolModes == 1:
         return sig_o[:, 0], symb[:, 0]
     return sig_o, symb
+
+
+def set_power_for_par_ssfm(sig, powers_dbm, verbose=False):
+    """Scale the polarization pairs of a mode-batched field to launch powers
+    (the GPU reference's parallel-power helper, modelsGPU.py:775).
+
+    Column pairs (2k, 2k+1) of ``sig`` form the k-th polmux signal; each
+    column is scaled to half of ``powers_dbm[k]``, so the pair carries
+    ``powers_dbm[k]``. One vectorized rescale; the target powers are float32
+    as in the JAX package.
+    """
+    sig = as_device_tensor(sig)
+    p_dbm = torch.as_tensor(powers_dbm, dtype=torch.float32, device=sig.device)
+    p_lin = torch.repeat_interleave(dbm2w(p_dbm), 2) / 2
+    cur = torch.mean((sig * sig.conj()).real, dim=0)
+    out = sig * torch.sqrt(p_lin / cur)[None, :]
+    if verbose:
+        for i in range(out.shape[1]):
+            print("power mode %d: %.2f dBm"
+                  % (i, 10 * np.log10(float(signal_power(out[:, i])) / 1e-3)))
+    return out

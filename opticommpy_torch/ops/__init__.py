@@ -21,9 +21,11 @@ from opticommpy_torch.ops.signal import (
     decimate,
     delay_signal,
     finddelay,
+    freq_shift,
     iq_mixing,
     moving_average,
     pnorm,
+    quantizer,
     resample,
     sig_pow,
     signal_power,
@@ -48,9 +50,11 @@ __all__ = [
     "decimate",
     "delay_signal",
     "finddelay",
+    "freq_shift",
     "iq_mixing",
     "moving_average",
     "pnorm",
+    "quantizer",
     "resample",
     "sig_pow",
     "signal_power",

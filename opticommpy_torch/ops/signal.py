@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from opticommpy_torch.ops.filtering import fir_filter, lowpass_fir
+from opticommpy_torch.utils.rng import as_device_tensor
 from opticommpy_torch.utils.scan import cumsum
 
 __all__ = [
@@ -20,6 +21,7 @@ __all__ = [
     "pnorm",
     "anorm",
     "upsample",
+    "quantizer",
     "clock_sampling_interp",
     "decimate",
     "resample",
@@ -28,6 +30,7 @@ __all__ = [
     "moving_average",
     "delay_signal",
     "iq_mixing",
+    "freq_shift",
 ]
 
 
@@ -110,6 +113,24 @@ def upsample(x, factor):
     up[:, 0, :] = x
     up = up.reshape(n * factor, m)
     return up[:, 0] if squeeze else up
+
+
+def quantizer(x, n_bits=16, max_v=1.0, min_v=-1.0):
+    """Uniform quantizer with 2**n_bits levels spanning [min_v, max_v]
+    (core.py:317), float32: the level index is ``(x - min_v) / delta``
+    rounded half to even and clipped. The division is a product by the
+    float32 reciprocal of ``delta``, the arithmetic XLA gives the JAX
+    package's division by a scalar, so near-ties round to the same level.
+    ``max_v`` and ``min_v`` may be 0-dim tensors."""
+    x = as_device_tensor(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    max_v = torch.as_tensor(max_v).to(**f32)
+    min_v = torch.as_tensor(min_v).to(**f32)
+    top = torch.full((), float(2**n_bits - 1), **f32)
+    delta = (max_v - min_v) / top
+    inv = torch.ones((), **f32) / delta
+    idx = torch.clamp(torch.round((x - min_v) * inv), min=0.0, max=float(2**n_bits - 1))
+    return (min_v + idx * delta).to(torch.float32)
 
 
 def _interp_columns(t_out, t_in, x):
@@ -222,17 +243,26 @@ def finddelay(x, y):
     return torch.argmax(xcorr) - x.shape[0] + 1
 
 
+def _imag(x):
+    """``jnp.imag``: the imaginary part, zeros for a real tensor."""
+    return x.imag if x.is_complex() else torch.zeros_like(x)
+
+
+def _peak(c):
+    """The value of ``c`` at its first largest magnitude."""
+    return c[torch.argmax(torch.abs(c))]
+
+
 def symbol_sync(rx, tx, sps, mode="amp"):
     """Align the transmitted sequence to the received one (core.py:552).
 
     Decimates ``rx`` to 1 SpS, resolves mode swaps from the cross-correlation
-    of centered amplitudes, then rolls out the per-mode delays. Returns the
-    synchronized transmit sequence.
+    of centered amplitudes ('amp') or of real parts, with the pi/2 rotation
+    and the conjugation resolved from the signs of the peaks ('real'), then
+    rolls out the per-mode delays. Modes are visited in the JAX package's
+    order and argmaxes take the first of equal maxima, so ties resolve the
+    same way. Returns the synchronized transmit sequence.
     """
-    if mode != "amp":
-        raise NotImplementedError(
-            f"symbol_sync mode={mode!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 2); mode='amp' is")
     rx, tx = torch.as_tensor(rx), torch.as_tensor(tx)
     squeeze = rx.ndim == 1
     if squeeze:
@@ -247,17 +277,45 @@ def symbol_sync(rx, tx, sps, mode="amp"):
         a = torch.abs(z)
         return a - a.mean(dim=0, keepdim=True)
 
-    atx, arx = centered_abs(tx), centered_abs(rx)
-    corr = torch.stack([
-        torch.stack([torch.max(torch.abs(_xcorr_full(atx[:, m], arx[:, n])))
-                     for n in range(n_modes)])
-        for m in range(n_modes)])
-    swap = torch.argmax(corr, dim=0)
-    tx = tx[:, swap]
-    atx = centered_abs(tx)
-    delays = torch.stack([
-        torch.argmax(torch.abs(_xcorr_full(atx[:, k], arx[:, k])))
-        - tx.shape[0] + 1 for k in range(n_modes)])
+    if mode == "amp":
+        atx, arx = centered_abs(tx), centered_abs(rx)
+        corr = torch.stack([
+            torch.stack([torch.max(torch.abs(_xcorr_full(atx[:, m], arx[:, n])))
+                         for n in range(n_modes)])
+            for m in range(n_modes)])
+        swap = torch.argmax(corr, dim=0)
+        tx = tx[:, swap]
+        atx = centered_abs(tx)
+        delays = torch.stack([
+            torch.argmax(torch.abs(_xcorr_full(atx[:, k], arx[:, k])))
+            - tx.shape[0] + 1 for k in range(n_modes)])
+    elif mode == "real":
+        one = torch.ones((), dtype=torch.complex64, device=rx.device)
+        peaks, rots = [], []
+        for m in range(n_modes):
+            for n in range(n_modes):
+                crr = _peak(_xcorr_full(tx[:, m].real, rx[:, n].real))
+                cir = _peak(_xcorr_full(_imag(tx[:, m]), rx[:, n].real))
+                rot = torch.where(torch.abs(crr) > torch.abs(cir),
+                                  torch.where(crr > 0, one, -one),
+                                  torch.where(cir > 0, -1j * one, 1j * one))
+                peaks.append(torch.maximum(torch.abs(crr), torch.abs(cir)))
+                rots.append(rot)
+        peaks = torch.stack(peaks).reshape(n_modes, n_modes)
+        rots = torch.stack(rots).reshape(n_modes, n_modes)
+        swap = torch.argmax(peaks, dim=0)
+        tx = tx[:, swap] * rots[swap, torch.arange(n_modes, device=rx.device)][None, :]
+        delays, cols = [], []
+        for k in range(n_modes):
+            col = tx[:, k]
+            delays.append(torch.argmax(torch.abs(_xcorr_full(col.real, rx[:, k].real)))
+                          - tx.shape[0] + 1)
+            cii = _peak(_xcorr_full(col.imag, _imag(rx[:, k])))
+            cols.append(torch.where(cii < 0, col.conj(), col))
+        tx = torch.stack(cols, dim=1)
+        delays = torch.stack(delays)
+    else:
+        raise ValueError("mode must be 'amp' or 'real'")
     tx = _roll_columns(tx, delays)
     return tx[:, 0] if squeeze else tx
 
@@ -315,3 +373,16 @@ def iq_mixing(sig, fs, amp_imb_db=0.0, phase_imb=0.0, time_skew=0.0):
     s_i = delay_signal(mixed.real, -delay, fs)
     s_q = delay_signal(mixed.imag, delay, fs)
     return torch.complex(s_i, s_q)
+
+
+def freq_shift(x, delta_f, fs):
+    """Shift the signal spectrum by ``delta_f`` Hz (core.py:1049): ``x *
+    exp(j*2*pi*delta_f*t)`` with ``t = arange(N) / fs`` and the phase in
+    float32, as the JAX package computes them."""
+    x = as_device_tensor(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    t = torch.arange(x.shape[0], **f32) / torch.full((), fs, **f32)
+    ph = torch.exp(1j * (float(2 * math.pi * delta_f) * t))
+    if x.ndim > 1:
+        ph = ph[:, None]
+    return x * ph

@@ -1,6 +1,7 @@
-"""General utilities: unit conversions, random-generator helpers and a
-run-independent cumulative sum (:mod:`.scan`)."""
+"""General utilities: unit conversions, bit arrays, random-generator
+helpers and a run-independent cumulative sum (:mod:`.scan`)."""
 
+from opticommpy_torch.utils.bits import bitarray2dec, dec2bitarray
 from opticommpy_torch.utils.rng import ensure_generator
 from opticommpy_torch.utils.units import (
     ber2qfactor,
@@ -11,5 +12,5 @@ from opticommpy_torch.utils.units import (
     w2dbm,
 )
 
-__all__ = ["db2lin", "dbm2w", "lin2db", "w2dbm", "ber2qfactor", "llr2bit_prob",
+__all__ = ["bitarray2dec", "dec2bitarray", "db2lin", "dbm2w", "lin2db", "w2dbm", "ber2qfactor", "llr2bit_prob",
            "ensure_generator"]

@@ -27,10 +27,12 @@ def default_device(device=None):
     return torch.device("cuda")
 
 
-def as_device_tensor(x):
-    """``x`` as a tensor: a tensor stays on its device; anything else (a
-    NumPy array, a list) goes to :func:`default_device`, so only a CPU
-    tensor asks for the CPU."""
+def as_device_tensor(x, device=None):
+    """``x`` as a tensor on ``device`` when one is named; otherwise a tensor
+    stays on its device and anything else (a NumPy array, a list) goes to
+    :func:`default_device`, so only a CPU tensor asks for the CPU."""
+    if device is not None:
+        return torch.as_tensor(x, device=device)
     if isinstance(x, torch.Tensor):
         return x
     return torch.as_tensor(np.asarray(x), device=default_device())

@@ -25,6 +25,7 @@ from opticommpy_tpu.dsp.equalization import (  # noqa: E402
     MIMOEqualizerConfig,
     VolterraConfig,
 )
+from opticommpy_tpu.dsp.synchronization import SyncConfig  # noqa: E402
 from opticommpy_tpu.models import config as jax_model_config  # noqa: E402
 from opticommpy_tpu.models.tx import PAMTxConfig, WDMTxConfig  # noqa: E402
 from opticommpy_tpu.pipelines import CoherentDSPConfig, IMDDConfig  # noqa: E402
@@ -44,7 +45,7 @@ JAX_CONFIGS = sorted(
      if dataclasses.is_dataclass(obj) and isinstance(obj, type)]
     + [WDMTxConfig, EDCConfig, MIMOEqualizerConfig, CPRConfig, CoherentDSPConfig,
        ClockRecoveryConfig, FFWClockRecoveryConfig, LDPCConfig, DFEConfig, FFEConfig,
-       VolterraConfig, PAMTxConfig, IMDDConfig],
+       VolterraConfig, PAMTxConfig, IMDDConfig, SyncConfig],
     key=lambda c: c.__name__)
 
 
