@@ -11,6 +11,7 @@ from opticommpy_torch.comm.modulation import (  # noqa: F401
     gray_code,
     gray_mapping,
     min_euclid,
+    mlse,
     modulate_gray,
     soft_estimator,
     soft_mapper,

@@ -47,7 +47,7 @@ def bert(i_rx, bits_tx):
     BER of the decisions ``i_rx > Id`` against ``bits_tx`` (required).
     Returns (ber, q) as 0-dim tensors on the input's device.
     """
-    i_rx = torch.as_tensor(i_rx).reshape(-1)
+    i_rx = as_device_tensor(i_rx).reshape(-1)
     bits_tx = torch.as_tensor(bits_tx).to(i_rx.device).reshape(-1)
     is1 = bits_tx == 1
     zero = torch.zeros((), dtype=i_rx.dtype, device=i_rx.device)
@@ -111,7 +111,7 @@ def fast_ber_calc(rx, tx, M, const_type, px=None):
         px = np.ones(M) / M
     const = gray_mapping(M, const_type)
     es = float(np.sum(np.abs(const) ** 2 * np.asarray(px).reshape(-1)))
-    rx = _as_columns(rx)
+    rx = _as_columns(as_device_tensor(rx))
     tx = _as_columns(tx).to(rx.device)
     rx = _pnorm_cols(_phase_align(rx, tx, const_type))
     tx = _pnorm_cols(tx)
@@ -133,7 +133,7 @@ def fast_ber_calc(rx, tx, M, const_type, px=None):
 def calc_llr(rx_symb, noise_var, const_symb, bitmap, px):
     """Bit LLRs under a circular AWGN model (metrics.py:198), interleaved,
     length N*log2(M)."""
-    rx_symb = torch.as_tensor(rx_symb).reshape(-1)
+    rx_symb = as_device_tensor(rx_symb).reshape(-1)
     dev = rx_symb.device
     const_symb = _const_tensor(const_symb, dev).reshape(-1)
     bitmap = torch.as_tensor(np.asarray(bitmap), device=dev).float()
@@ -162,7 +162,7 @@ def monte_carlo_gmi(rx, tx, M, const_type, px=None):
     const_n = const / np.sqrt(es)
     H = float(-np.sum(px * np.log2(px)))
 
-    rx = _as_columns(rx)
+    rx = _as_columns(as_device_tensor(rx))
     tx = _as_columns(tx).to(rx.device)
     rx = _pnorm_cols(_phase_align(rx, tx, const_type))
     tx = _pnorm_cols(tx)
@@ -253,7 +253,7 @@ def monte_carlo_mi(rx, tx, M, const_type, px=None):
 
 def calc_evm(symb, M, const_type, symb_tx=None):
     """Error vector magnitude per mode (metrics.py:572)."""
-    symb = _as_columns(pnorm(torch.as_tensor(symb)))
+    symb = _as_columns(pnorm(as_device_tensor(symb)))
     const = pnorm(_const_tensor(gray_mapping(M, const_type), symb.device))
     if symb_tx is not None:
         symb_tx = pnorm(_as_columns(torch.as_tensor(symb_tx).to(symb.device)))

@@ -1,10 +1,11 @@
 """Digital modulation: constellations, Gray mapping, (de)mapping, symbol
 detection and soft mapping.
 
-Port of ``opticommpy_tpu/comm/modulation.py`` (not yet ``mlse``).
-Constellation generation is the same host NumPy code; the per-symbol
-operations run on tensors: the detector as one broadcast distance tensor,
-the soft estimator as matmuls against the bit map.
+Port of ``opticommpy_tpu/comm/modulation.py``. Constellation generation is
+the same host NumPy code; the per-symbol operations run on tensors: the
+detector as one broadcast distance tensor, the soft estimator as matmuls
+against the bit map, the MLSE (:func:`mlse`) as a Viterbi recursion over
+the symbols with all trellis states at once.
 """
 
 import numpy as np
@@ -30,6 +31,7 @@ __all__ = [
     "detector",
     "soft_estimator",
     "soft_mapper",
+    "mlse",
 ]
 
 
@@ -145,7 +147,7 @@ def bit_map(M, const_type):
 
 def min_euclid(symb, const):
     """Index of the closest constellation point per symbol (modulation.py:271)."""
-    symb = torch.as_tensor(symb)
+    symb = as_device_tensor(symb)
     const = torch.as_tensor(const, device=symb.device)
     d2 = torch.abs(symb[..., None] - const) ** 2
     return torch.argmin(d2, dim=-1)
@@ -153,7 +155,7 @@ def min_euclid(symb, const):
 
 def demap(ind_symb, bitmap):
     """Symbol indices -> interleaved bit sequence (modulation.py:302)."""
-    ind_symb = torch.as_tensor(ind_symb)
+    ind_symb = as_device_tensor(ind_symb)
     bits = torch.as_tensor(bitmap, device=ind_symb.device)[ind_symb]
     return bits.reshape(-1)
 
@@ -163,7 +165,7 @@ def modulate_gray(bits, M, const_type):
     if const_type == "ook":
         M = 2
     b = int(np.log2(M))
-    bits = torch.as_tensor(bits)
+    bits = as_device_tensor(bits)
     const = torch.as_tensor(gray_mapping(M, const_type), device=bits.device)
     weights = torch.as_tensor(1 << np.arange(b - 1, -1, -1), device=bits.device)
     idx = torch.sum(bits.reshape(-1, b).long() * weights, dim=1)
@@ -174,7 +176,7 @@ def demodulate_gray(symb, M, const_type):
     """Hard demodulation: minimum-distance + Gray demapping (modulation.py:369)."""
     if const_type == "ook":
         M = 2
-    symb = torch.as_tensor(symb)
+    symb = as_device_tensor(symb)
     const = torch.as_tensor(gray_mapping(M, const_type), device=symb.device)
     return demap(min_euclid(symb, const), bit_map(M, const_type))
 
@@ -235,3 +237,82 @@ def soft_mapper(llr, M, const_type):
     llr = as_device_tensor(llr)
     const = pnorm(torch.as_tensor(gray_mapping(M, const_type), device=llr.device))
     return soft_estimator(llr.reshape(-1, b), bit_map(M, const_type), const)
+
+
+# ---------------------------------------------------------------------------
+# MLSE (Viterbi): one step per symbol, all states at once
+# ---------------------------------------------------------------------------
+
+
+_MLSE_CHUNK = 4096  # steps whose branch metrics are computed at once
+
+
+def _host(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def mlse(y, h, const_symb):
+    """Maximum-likelihood sequence estimation via Viterbi (modulation.py:581;
+    port of the JAX ``mlse``).
+
+    Trellis states are the channel memory contents (M**L states, L =
+    len(h) - 1, the most recent symbol the least significant base-M
+    digit). ``y_expected`` (the channel output per state and input
+    symbol), the predecessors ``pred`` and the emitted symbols ``emit`` are
+    built on the host, as in the JAX package. The forward recursion runs
+    on the device of ``y`` (a tensor keeps its device, any other input goes
+    to the CUDA device), one step per symbol over all states: float32 path
+    metrics that start at zero and are never renormalized, and the
+    survivor of each state the first of its M candidates with the least
+    metric (``torch.min`` over a state's candidates takes the first index
+    on a tie, as ``jnp.argmin`` does). The branch metrics are computed for
+    4,096 steps at a time, so a step is four ops. The traceback copies the
+    (N, S) survivor choices to the host once and walks them back there.
+    With L = 0 the decision is the nearest point to ``y / h[0]``.
+
+    Returns the detected symbols (N,), float32 for a real constellation,
+    else complex64.
+    """
+    y = as_device_tensor(y)
+    const_symb = _host(const_symb)
+    h = _host(h)
+    dev = y.device
+    M = len(const_symb)
+    L = len(h) - 1
+    const_t = torch.as_tensor(const_symb.astype(
+        np.complex64 if np.iscomplexobj(const_symb) else np.float32), device=dev)
+    if L == 0:
+        h0 = complex(h[0]) if np.iscomplexobj(h) else float(h[0])
+        return const_t[min_euclid(y / h0, const_t)]
+
+    n_states = M**L
+    s = np.arange(n_states)
+    digits = np.stack([(s // (M**i)) % M for i in range(L)], axis=1)  # (S, L)
+    y_expected = np.outer(np.ones(n_states), h[0] * const_symb).astype(complex)
+    for i in range(1, L + 1):
+        y_expected += h[i] * const_symb[digits[:, i - 1]][:, None]
+    y_exp = torch.as_tensor(y_expected.astype(np.complex64), device=dev)  # (S, M)
+    pred = s[:, None] // M + np.arange(M)[None, :] * (M ** (L - 1))  # (S, M)
+    emit = s % M  # symbol emitted entering state s
+    pred_t = torch.as_tensor(pred, device=dev)
+    flat_t = torch.as_tensor(pred * M + emit[:, None], device=dev)  # bm[pred, emit]
+
+    y = y.to(torch.complex64).reshape(-1)
+    n = y.shape[0]
+    pm = torch.zeros(n_states, dtype=torch.float32, device=dev)
+    best = torch.empty((n, n_states), dtype=torch.int64, device=dev)
+    for start in range(0, n, _MLSE_CHUNK):
+        # branch metrics of a chunk of steps at once, (steps, S, M), each
+        # candidate's bm[pred[s, j], emit[s]] gathered in one op
+        bm = torch.abs(y[start:start + _MLSE_CHUNK, None, None] - y_exp) ** 2
+        bm = bm.reshape(bm.shape[0], -1)[:, flat_t]
+        for k in range(bm.shape[0]):
+            pm, best[start + k] = torch.min(pm[pred_t] + bm[k], dim=1)
+
+    j_best = best.cpu().numpy()
+    state = int(torch.argmin(pm))
+    states = np.empty(n, np.int64)
+    for k in range(n - 1, -1, -1):
+        states[k] = state
+        state = pred[state, j_best[k, state]]
+    return const_t[torch.as_tensor(emit[states], device=dev)]

@@ -17,6 +17,7 @@ import torch
 from opticommpy_torch.comm.modulation import gray_mapping
 from opticommpy_torch.comm.sources import symbol_pmf
 from opticommpy_torch.ops.signal import fftfreq, moving_average, pnorm
+from opticommpy_torch.utils.rng import as_device_tensor
 from opticommpy_torch.utils.scan import cumsum
 
 __all__ = ["CPRConfig", "cpr", "bps", "ddpll", "viterbi", "fourth_power_foe",
@@ -42,7 +43,7 @@ class CPRConfig:
 
 def unwrap(p, dim=0, period=2 * math.pi):
     """``jnp.unwrap`` along ``dim``: remove jumps larger than period/2."""
-    p = torch.as_tensor(p)
+    p = as_device_tensor(p)
     if p.shape[dim] == 0:
         return p
     interval = torch.tensor(period / 2, dtype=p.dtype, device=p.device)
@@ -64,7 +65,7 @@ def bps(sig, n_half, const_symb, n_phases):
     [0, pi/2). :func:`opticommpy_torch.kernels.bps.bps_kernel` is the fused
     kernel version.
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     squeeze = sig.ndim == 1
     if squeeze:
         sig = sig[:, None]
@@ -101,7 +102,7 @@ def ddpll(sig, ts, kv, tau1, tau2, const_symb, symb_tx=None, pilot_ind=None):
     on the CPU). This is also the plain version of the K7 kernel
     (``kernels/ddpll.py``), whose packed columns are bit-identical per signal.
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     squeeze = sig.ndim == 1
     if squeeze:
         sig = sig[:, None]
@@ -159,7 +160,7 @@ def _integer_pow(x, p):
 
 def viterbi(sig, n_win=35, m_power=4):
     """Viterbi & Viterbi M-th power phase estimation (carrierRecovery.py:303)."""
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     ma = moving_average(_integer_pow(sig, m_power), n_win)
     return (-unwrap(torch.angle(ma) / m_power, dim=0, period=2 * math.pi / m_power)
             - math.pi / 4)
@@ -170,7 +171,7 @@ def fourth_power_foe(sig, fs, m_power=4):
 
     Returns (compensated signal, estimated offsets per mode).
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     squeeze = sig.ndim == 1
     if squeeze:
         sig = sig[:, None]
@@ -187,7 +188,7 @@ def fourth_power_foe(sig, fs, m_power=4):
 
 def residual_linewidth(phase_est, Ts):
     """Residual phase-noise linewidth after CPR, in Hz (carrierRecovery.py:154-162)."""
-    phase_est = torch.as_tensor(phase_est)
+    phase_est = as_device_tensor(phase_est)
     if phase_est.ndim == 1:
         phase_est = phase_est[:, None]
     discard = phase_est.shape[0] // 4
@@ -205,7 +206,7 @@ def cpr(sig, config: CPRConfig = CPRConfig(), symb_tx=None, pilot_ind=None,
     the 4x phase, and derotates. ``return_linewidth=True`` appends the
     :func:`residual_linewidth` estimate [Hz].
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     squeeze = sig.ndim == 1
     if squeeze:
         sig = sig[:, None]

@@ -24,6 +24,7 @@ import torch
 from scipy.signal import find_peaks
 
 from opticommpy_torch.kernels import gardner
+from opticommpy_torch.utils.rng import as_device_tensor
 from opticommpy_torch.utils.scan import cumsum
 
 __all__ = [
@@ -51,16 +52,19 @@ class ClockRecoveryConfig:
 
 def gardner_ted(x):
     """Gardner timing error on a 3-sample segment (clockRecovery.py:24)."""
+    x = as_device_tensor(x)
     return torch.real(torch.conj(x[1]) * (x[2] - x[0]))
 
 
 def gardner_ted_nyquist(x):
     """Modified Gardner TED for Nyquist pulses (clockRecovery.py:42)."""
+    x = as_device_tensor(x)
     return torch.abs(x[1]) ** 2 * (torch.abs(x[0]) ** 2 - torch.abs(x[2]) ** 2)
 
 
 def interpolator(x, t):
     """Cubic Farrow interpolation over a 4-sample segment (clockRecovery.py:60)."""
+    x = as_device_tensor(x)
     t3 = t * t * t
     t2 = t * t
     return (x[0] * (-1 / 6 * t3 + 1 / 6 * t)
@@ -82,7 +86,7 @@ def gardner_clock_recovery(sig, config: ClockRecoveryConfig = ClockRecoveryConfi
     n_in`` samples; otherwise it is cut to the last sample the NCO reached
     in any mode (a host sync).
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     squeeze = sig.ndim == 1
     if squeeze:
         sig = sig[:, None]
@@ -164,7 +168,7 @@ def ffw_clock_recovery(sig, config: FFWClockRecoveryConfig = FFWClockRecoveryCon
     plus ``(ppm_est, tau_blocks)`` if ``return_est``.
     """
     cfg = config
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     squeeze = sig.ndim == 1
     if squeeze:
         sig = sig[:, None]

@@ -9,18 +9,24 @@ Port of ``opticommpy_tpu/dsp/equalization.py``, part A:
 - :func:`manakov_dbp` — digital backpropagation: the Manakov span of
   :mod:`opticommpy_torch.models.channels` run with inverted signs.
 - :func:`mimo_adapt_equalizer` — multi-stage training (per-stage rule and
-  step, ``numIter`` pre-convergence passes of the first stage, taps and the
-  RLS state Sd chained across stages) with the rules nlms, dd-lms, cma,
-  rde, da-rde, rls and dd-rls. ``backend='scan'`` runs the JAX package's
-  scan rules as a per-symbol loop; ``backend='pallas'`` runs each stage's
-  recurrence on a Hopper kernel, one launch per pass: the gradient rules
-  on K2 (:mod:`opticommpy_torch.kernels.mimo_eq`), rls and square-QAM
-  dd-rls on K5 with one signal (:mod:`opticommpy_torch.kernels.rls`);
-  dd-rls on another constellation runs the scan rule, as in the JAX package.
+  step, ``numIter`` pre-convergence passes of the first stage, taps, the
+  widely linear taps ``H_`` and the RLS state Sd chained across stages)
+  with the rules nlms, dd-lms, cma, rde, da-rde, rls, dd-rls and static.
+  ``backend='scan'`` runs the JAX package's scan rules as a per-symbol
+  loop; ``backend='pallas'`` runs each stage's recurrence on a Hopper
+  kernel, one launch per pass: the gradient rules on K2
+  (:mod:`opticommpy_torch.kernels.mimo_eq`), rls and square-QAM dd-rls on
+  K5 with one signal (:mod:`opticommpy_torch.kernels.rls`). As in the JAX
+  package, dd-rls on another constellation, ``runWL`` (the widely linear
+  bank ``H_`` on ``conj(win)``) and ``storeCoeff`` (the taps after every
+  symbol) take the scan rule, and ``blockUpdate = K > 1`` the blocked rule
+  (taps frozen within K-symbol blocks, one batched contraction per block,
+  the per-symbol rule on the remainder after the last whole block).
 - :func:`mimo_adapt_equalizer_batch` — B signals' schedules at once: each
-  kernel pass serves all B signals (gradient rules on K3, RLS on K5).
-- :class:`MIMOEqualizer` — the trainer as a module with ``H`` and ``Sd``
-  buffers.
+  kernel pass serves all B signals (gradient rules on K3, RLS on K5), and
+  each block of a blocked stage is one set of ops for all B signals.
+- :class:`MIMOEqualizer` — the trainer as a module with ``H``, ``H_`` and
+  ``Sd`` buffers.
 - :func:`mimo_apply` — frozen taps applied as one frequency-domain filter
   bank (the result of the ``static`` rule), and :func:`mimo_apply_fused`,
   which folds a matched filter, CD compensation and the power
@@ -34,10 +40,6 @@ the kernels' plain versions (:mod:`opticommpy_torch.kernels.dfe`,
 :mod:`opticommpy_torch.kernels.volterra`) on any device and never launch
 a kernel, as the JAX functions run their scans; the kernels' entries are
 ``dfe_kernel``, ``ffe_kernel`` and ``volterra_kernel``.
-
-Not ported yet (they raise ``NotImplementedError``): ``runWL``,
-``blockUpdate > 1`` and, in the single-signal trainer, ``storeCoeff``
-(ROADMAP.md queue 1, item 2, the per-symbol scans).
 """
 
 import functools
@@ -96,7 +98,7 @@ def edc(sig, config: EDCConfig):
     The inverse CD response ``H = exp(-j*b2/2*w^2*L)`` on an auto-sized tap
     grid (Savory's rule), applied by one FFT convolution over all modes.
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     Hcd = _edc_response(config)
     n_coeffs = Hcd.shape[0]
     nfft = config.Nfft
@@ -182,37 +184,32 @@ _KERNEL_ALG = {"nlms": "nlms", "dd-lms": "lms", "cma": "cma", "rde": "rde",
                "da-rde": "da-rde"}
 
 
-def _unported(what):
-    return NotImplementedError(
-        f"mimo_adapt_equalizer: {what} is not ported yet (ROADMAP.md queue 1, "
-        "item 2, the per-symbol scans)")
-
-
 def _check_config(config):
-    if config.runWL:
-        raise _unported("runWL (widely linear)")
-    if config.blockUpdate > 1:
-        raise _unported("blockUpdate > 1")
     if config.backend not in ("scan", "pallas"):
         raise ValueError(f"unknown backend {config.backend!r}")
-    for alg in config.alg:
-        if alg not in _KERNEL_STAGE_ALGS + _RLS_ALGS + ("static",):
-            raise ValueError(
-                "Equalization algorithm not specified (or incorrectly specified).")
 
 
-def _adapt_eq_stage_scan(stage_slice, ref_slice, H, Sd, const, r_cma, r_rde, mu,
-                         lam, alg, sps, n_taps, length):
-    """One training stage of one signal as a per-symbol loop with the scan rules.
+def _adapt_eq_stage_scan(stage_slice, ref_slice, H, Sd, const, r_cma, r_rde, mu, lam,
+                         alg, sps, n_taps, length, H_=None, run_wl=False,
+                         store_coeff=False):
+    """One training stage of one signal as a per-symbol loop with the scan
+    rules (port of ``_adapt_eq_stage``).
 
     ``stage_slice``: the padded input rows of this stage; ``H``: (modes,
-    modes, taps) taps H[out, in, :]; ``Sd``: (modes, taps, taps), the RLS
-    state. Returns (y, H, Sd, err_sq).
+    modes, taps) taps H[out, in, :]; ``H_``: the widely linear taps on
+    ``conj(win)``, used and updated by the gradient rules under ``run_wl``;
+    ``Sd``: (modes, taps, taps), the RLS state. Returns (y, H, H_, Sd,
+    err_sq, h_iter): ``h_iter`` is the taps after every symbol (length,
+    o, i, t) under ``store_coeff``, else the last taps (1, o, i, t).
     """
-    outs, errs = [], []
+    if alg not in _KERNEL_STAGE_ALGS + _RLS_ALGS + ("static",):
+        raise ValueError("Equalization algorithm not specified (or incorrectly specified).")
+    outs, errs, h_iter = [], [], []
     for ind in range(length):
         win = stage_slice[ind * sps:ind * sps + n_taps]  # (taps, modes)
         out = torch.sum(H * win.T[None, :, :], dim=(1, 2))
+        if run_wl:
+            out = out + torch.sum(H_ * win.T.conj()[None, :, :], dim=(1, 2))
         if alg in ("nlms", "rls", "static"):
             err = ref_slice[ind] - out
         elif alg in ("dd-lms", "dd-rls"):
@@ -245,9 +242,72 @@ def _adapt_eq_stage_scan(stage_slice, ref_slice, H, Sd, const, r_cma, r_rde, mu,
             else:  # cma, rde, da-rde
                 grad_err, grad_win = err * out, win
             H = H + mu * (grad_err[:, None, None] * grad_win.T.conj()[None, :, :])
+            if run_wl:
+                H_ = H_ + mu * (grad_err[:, None, None] * grad_win.T[None, :, :])
         outs.append(out)
         errs.append(torch.abs(err) ** 2)
-    return torch.stack(outs), H, Sd, torch.stack(errs)
+        if store_coeff:
+            h_iter.append(H)
+    h_iter = torch.stack(h_iter) if store_coeff else H[None]
+    return torch.stack(outs), H, H_, Sd, torch.stack(errs), h_iter
+
+
+def _adapt_eq_stage_blocked(stage_slice, ref_slice, H, H_, const, r_cma, r_rde, mu,
+                            alg, sps, n_taps, length, run_wl, k_block):
+    """Blocked training stage of B signals (port of ``_adapt_eq_stage_blocked``).
+
+    The taps are frozen within each K-symbol block: the K outputs of a
+    block come from one contraction over (taps, modes), and the
+    gradient accumulated over the block is applied once (mini-batch LMS).
+    ``stage_slice`` (B, rows, modes), ``ref_slice`` (B, length, modes),
+    ``H`` and ``H_`` (B, o, i, t); ``length`` is a multiple of K. Every
+    op of a block serves all B signals. The contractions are explicit
+    complex products and sums in float32 (no matmul, so never TF32): they
+    mix taps and modes. Returns (y (B, length, modes), H, H_, err_sq (B,
+    length, modes)).
+    """
+    if alg not in ("nlms", "cma", "dd-lms", "rde", "da-rde", "static"):
+        raise ValueError(f"blockUpdate > 1 is not supported for algorithm '{alg}'")
+    n_blocks = length // k_block
+    # (B, length, modes, taps): wins[b, k, i, t] = stage_slice[b, k*sps + t, i]
+    wins_all = stage_slice.unfold(1, n_taps, sps)[:, :length]
+    outs, errs = [], []
+    for blk in range(n_blocks):
+        wins = wins_all[:, blk * k_block:(blk + 1) * k_block]  # (B, K, i, t)
+        refs = ref_slice[:, blk * k_block:(blk + 1) * k_block]  # (B, K, o)
+        out = torch.sum(H[:, None] * wins[:, :, None], dim=(-2, -1))  # (B, K, o)
+        if run_wl:
+            out = out + torch.sum(H_[:, None] * wins.conj()[:, :, None], dim=(-2, -1))
+        wins_g = wins
+        if alg == "nlms":
+            err = refs - out
+            wins_g = wins / torch.sum(torch.abs(wins) ** 2, dim=-1, keepdim=True)
+            eff = err
+        elif alg == "cma":
+            err = r_cma - torch.abs(out) ** 2
+            eff = err.to(H.dtype) * out
+        elif alg == "dd-lms":
+            dec = const[torch.argmin(torch.abs(out[..., None] - const) ** 2, dim=-1)]
+            err = dec - out
+            eff = err
+        elif alg == "rde":
+            r_dec = r_rde[torch.argmin(torch.abs(r_rde - torch.abs(out)[..., None]), dim=-1)]
+            err = (r_dec**2 - torch.abs(out) ** 2).to(H.dtype)
+            eff = err * out
+        elif alg == "da-rde":
+            err = (torch.abs(refs) ** 2 - torch.abs(out) ** 2).to(H.dtype)
+            eff = err * out
+        else:  # static
+            err = refs - out
+            eff = torch.zeros_like(out)
+        # grad[b, o, i, t] = sum_k eff[b, k, o] conj(wins_g[b, k, i, t])
+        eff5 = eff[:, :, :, None, None]
+        H = H + mu * torch.sum(eff5 * wins_g.conj()[:, :, None], dim=1)
+        if run_wl:
+            H_ = H_ + mu * torch.sum(eff5 * wins_g[:, :, None], dim=1)
+        outs.append(out)
+        errs.append(torch.abs(err) ** 2)
+    return torch.cat(outs, dim=1), H, H_, torch.cat(errs, dim=1)
 
 
 def _stage_err_sq(alg, y, ref, const, aux):
@@ -305,12 +365,19 @@ def _adapt_eq_stage_kernel_rls(sig_pad, symb_ref, H, Sd, const_np, lam, alg,
     return y, H, Sd, _stage_err_sq(alg, y, ref, const, None)
 
 
-def _train(sig, config, symb_ref, H, Sd, single):
+def _train(sig, config, symb_ref, H, H_, Sd, single):
     """The multi-stage schedule for B signals (B, N, modes).
 
     ``single`` (B = 1) sends gradient-rule stages to K2 instead of K3.
-    Returns (y (B, nSym_out, modes), H (B, o, i, t), Sd (B, i, t, t),
-    err_sq (B, modes, nSym_out)).
+    Each stage takes the JAX package's route: a kernel pass (neither
+    ``runWL`` nor ``storeCoeff``; gradient rules only at ``blockUpdate``
+    1), else the blocked rule (``blockUpdate`` K > 1, not rls / dd-rls,
+    not ``storeCoeff``, at least K symbols) and the per-symbol rule on the
+    remainder, else the per-symbol rule. Returns (y (B, nSym_out, modes),
+    H (B, o, i, t), H_ (B, o, i, t), Sd (B, i, t, t), err_sq (B, modes,
+    nSym_out), h_iter): under ``storeCoeff`` ``h_iter`` is the stages'
+    tap histories concatenated, (B, nSym_out, o, i, t), each stage's from
+    its last pass; else None.
     """
     dev = sig.device
     n_batch, n_samples, n_modes = sig.shape
@@ -348,37 +415,61 @@ def _train(sig, config, symb_ref, H, Sd, single):
     r_rde = torch.as_tensor(np.unique(np.abs(const_np)).astype(np.float32),
                             device=dev)
 
-    outs, errs = [], []
+    run_wl, store = config.runWL, config.storeCoeff
+    k_block = config.blockUpdate
+
+    def scan(stage_slice, ref_slice, H, H_, Sd, mu, alg, length, store_coeff):
+        per_signal = [_adapt_eq_stage_scan(
+            stage_slice[b], ref_slice[b], H[b], Sd[b], const, r_cma, r_rde, mu, lam,
+            alg, sps, n_taps, length, H_[b], run_wl, store_coeff)
+            for b in range(n_batch)]
+        return tuple(torch.stack(t) for t in zip(*per_signal))
+
+    outs, errs, h_iters = [], [], []
     n_start = 0
     for stage, alg in enumerate(algs):
         length = int(stage_lengths[stage])
         n_iter = config.numIter if stage == 0 else 1
-        use_kernel = config.backend == "pallas" and alg in _KERNEL_STAGE_ALGS
+        mu = float(mus[stage])
+        gates_ok = config.backend == "pallas" and not run_wl and not store
+        use_kernel = gates_ok and alg in _KERNEL_STAGE_ALGS and k_block == 1
         # dd-rls needs the O(1) square-QAM slicer; data-aided rls has none
-        use_kernel_rls = (config.backend == "pallas" and alg in _RLS_ALGS
-                          and (alg == "rls" or square))
+        use_kernel_rls = gates_ok and alg in _RLS_ALGS and (alg == "rls" or square)
+        use_blocked = (k_block > 1 and alg not in _RLS_ALGS and not store
+                       and length >= k_block)
         stage_slice = sig_pad[:, n_start * sps:(n_start + length - 1) * sps + n_taps]
         ref_slice = symb_ref[:, n_start:n_start + length]
+        h_iter = None
         for _ in range(n_iter):
             if use_kernel:
                 sig_out, H, err_sq = _adapt_eq_stage_kernel(
-                    sig_pad, symb_ref, H, const_np, float(mus[stage]), alg, sps,
-                    n_taps, n_start, length, single)
+                    sig_pad, symb_ref, H, const_np, mu, alg, sps, n_taps, n_start,
+                    length, single)
             elif use_kernel_rls:
                 sig_out, H, Sd, err_sq = _adapt_eq_stage_kernel_rls(
                     sig_pad, symb_ref, H, Sd, const_np, lam, alg, sps, n_taps,
                     n_start, length)
+            elif use_blocked:
+                n_main = (length // k_block) * k_block
+                sig_out, H, H_, err_sq = _adapt_eq_stage_blocked(
+                    stage_slice, ref_slice, H, H_, const, r_cma, r_rde, mu, alg, sps,
+                    n_taps, n_main, run_wl, k_block)
+                if n_main < length:  # the per-symbol remainder
+                    so2, H, H_, Sd, es2, _ = scan(
+                        stage_slice[:, n_main * sps:], ref_slice[:, n_main:], H, H_,
+                        Sd, mu, alg, length - n_main, False)
+                    sig_out = torch.cat([sig_out, so2], dim=1)
+                    err_sq = torch.cat([err_sq, es2], dim=1)
             else:
-                per_signal = [_adapt_eq_stage_scan(
-                    stage_slice[b], ref_slice[b], H[b], Sd[b], const, r_cma, r_rde,
-                    float(mus[stage]), lam, alg, sps, n_taps, length)
-                    for b in range(n_batch)]
-                sig_out, H, Sd, err_sq = (torch.stack(t) for t in zip(*per_signal))
+                sig_out, H, H_, Sd, err_sq, h_iter = scan(
+                    stage_slice, ref_slice, H, H_, Sd, mu, alg, length, store)
         outs.append(sig_out)
         errs.append(err_sq)
+        h_iters.append(h_iter)
         n_start += length
-    return (torch.cat(outs, dim=1), H, Sd,
-            torch.cat(errs, dim=1).transpose(1, 2))
+    h_iter = torch.cat(h_iters, dim=1) if store else None
+    return (torch.cat(outs, dim=1), H, H_, Sd,
+            torch.cat(errs, dim=1).transpose(1, 2), h_iter)
 
 
 def _initial_state(n_batch, n_modes, n_taps, H, dev):
@@ -397,14 +488,12 @@ def _initial_state(n_batch, n_modes, n_taps, H, dev):
 def _mimo_adapt_equalizer(sig, config, symb_ref=None, H=None, H_=None, Sd=None):
     """The single-signal trainer with the RLS state in and out.
 
-    Returns (sigOut, H, H_, errSq, Sd).
+    Returns (sigOut, H, H_, errSq, Sd, Hiter).
     """
     if config is None:
         config = MIMOEqualizerConfig()
     _check_config(config)
-    if config.storeCoeff:
-        raise _unported("storeCoeff")
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     squeeze = sig.ndim == 1
     if squeeze:
         sig = sig[:, None]
@@ -417,12 +506,14 @@ def _mimo_adapt_equalizer(sig, config, symb_ref=None, H=None, H_=None, Sd=None):
                             None if H is None else torch.as_tensor(H)[None], dev)
     Sd = Sd0 if Sd is None else torch.as_tensor(Sd).to(dev, torch.complex64)[None]
     if H_ is None:
-        H_ = torch.zeros((n_modes, n_modes, config.nTaps), dtype=torch.complex64,
-                         device=dev)
-    y, H, Sd, err_sq = _train(sig[None], config, symb_ref.to(torch.complex64)[None],
-                              H, Sd, single=True)
+        H_ = torch.zeros_like(H)
+    else:
+        H_ = torch.as_tensor(H_).to(dev, torch.complex64)[None]
+    y, H, H_, Sd, err_sq, h_iter = _train(
+        sig[None], config, symb_ref.to(torch.complex64)[None], H, H_, Sd, single=True)
     y = y[0, :, 0] if squeeze else y[0]
-    return y, H[0], H_, err_sq[0], Sd[0]
+    h_iter = H if h_iter is None else h_iter[0]
+    return y, H[0], H_[0], err_sq[0], Sd[0], h_iter
 
 
 def mimo_adapt_equalizer(sig, config: MIMOEqualizerConfig = None, symb_ref=None,
@@ -432,14 +523,18 @@ def mimo_adapt_equalizer(sig, config: MIMOEqualizerConfig = None, symb_ref=None,
     Parity with reference mimoAdaptEqualizer (equalization.py:125): central
     spike initialization, zero padding of nTaps//2 at both ends, per-stage
     algorithm list, pre-convergence passes of the first stage, the RLS
-    state Sd (identity per mode at the start) chained like the taps.
+    state Sd (identity per mode at the start) chained like the taps, the
+    widely linear mode (``runWL``: taps ``H_`` on ``conj(win)``, zero at the
+    start unless given) and coefficient storage (``storeCoeff``).
 
     Returns the equalized symbols, or (sigOut, H, H_, errSq, Hiter) when
-    ``return_results`` is True.
+    ``return_results`` is True: ``Hiter`` is the taps after every output
+    symbol (nSym_out, o, i, t) under ``storeCoeff`` (each stage's from its
+    last pass), else the final taps (1, o, i, t).
     """
-    sig_out, H, H_, err_sq, _ = _mimo_adapt_equalizer(sig, config, symb_ref, H, H_)
+    sig_out, H, H_, err_sq, _, h_iter = _mimo_adapt_equalizer(sig, config, symb_ref, H, H_)
     if return_results:
-        return sig_out, H, H_, err_sq, H[None]
+        return sig_out, H, H_, err_sq, h_iter
     return sig_out
 
 
@@ -452,7 +547,8 @@ def mimo_adapt_equalizer_batch(sig, config: MIMOEqualizerConfig = None,
     nSym, modes), ``H`` optional (B, modes, modes, nTaps). Every signal runs
     the same schedule independently. With ``backend='pallas'`` each
     gradient-rule pass is one K3 launch and each rls / square-QAM dd-rls
-    pass one K5 launch for all B signals; other stages, and
+    pass one K5 launch for all B signals; a blocked stage (``blockUpdate >
+    1``) runs each block for all B signals at once; other stages, and
     ``backend='scan'``, run the scan rule per signal. Per signal the
     result equals :func:`mimo_adapt_equalizer`'s.
 
@@ -467,14 +563,14 @@ def mimo_adapt_equalizer_batch(sig, config: MIMOEqualizerConfig = None,
             "(there is no per-symbol h_iter return in the batch API); use "
             "mimo_adapt_equalizer per signal to record coefficient history")
     _check_config(config)
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     if sig.ndim != 3:
         raise ValueError("mimo_adapt_equalizer_batch expects (B, N, modes)")
     dev = sig.device
     symb_ref = sig if symb_ref is None else torch.as_tensor(symb_ref).to(dev)
     H, Sd = _initial_state(sig.shape[0], sig.shape[2], config.nTaps, H, dev)
-    y, H, _, err_sq = _train(sig, config, symb_ref.to(torch.complex64), H, Sd,
-                             single=False)
+    y, H, _, _, err_sq, _ = _train(sig, config, symb_ref.to(torch.complex64), H,
+                                   torch.zeros_like(H), Sd, single=False)
     if return_results:
         return y, H, err_sq
     return y
@@ -514,7 +610,7 @@ def mimo_apply(H, sig, sps=2):
     equalizer pads it. Returns (nSym, modes_out): the output of the
     equalizer's ``alg='static'`` rule, computed in the frequency domain.
     """
-    sig = torch.as_tensor(sig).to(torch.complex64)
+    sig = as_device_tensor(sig).to(torch.complex64)
     if sig.ndim == 1:
         sig = sig[:, None]
     H = torch.as_tensor(H).to(sig.device)
@@ -597,7 +693,7 @@ def mimo_apply_fused(H, sig, sps=2, pre=None, edc_config=None, scale=None):
 
     Returns (nSym, modes_out) equalized symbols.
     """
-    sig = torch.as_tensor(sig).to(torch.complex64)
+    sig = as_device_tensor(sig).to(torch.complex64)
     if sig.ndim == 1:
         sig = sig[:, None]
     H = torch.as_tensor(H).to(sig.device)
@@ -606,13 +702,14 @@ def mimo_apply_fused(H, sig, sps=2, pre=None, edc_config=None, scale=None):
 
 
 class MIMOEqualizer(torch.nn.Module):
-    """The adaptive equalizer with its taps ``H[out, in, taps]`` and RLS state
-    ``Sd[in, taps, taps]`` as module state.
+    """The adaptive equalizer with its taps ``H[out, in, taps]``, widely
+    linear taps ``H_`` and RLS state ``Sd[in, taps, taps]`` as module state.
 
     Each call trains on one block with :func:`mimo_adapt_equalizer`,
-    starting from the taps and Sd the previous call left (the central spike
-    and the identity at first), and keeps the new ones in the ``H`` and
-    ``Sd`` buffers, so a long record can be equalized block by block.
+    starting from the taps, ``H_`` and Sd the previous call left (the
+    central spike, zeros and the identity at first), and keeps the new
+    ones in the ``H``, ``H_`` and ``Sd`` buffers, so a long record can be
+    equalized block by block.
     """
 
     def __init__(self, config: MIMOEqualizerConfig, n_modes=2, device=None):
@@ -620,12 +717,13 @@ class MIMOEqualizer(torch.nn.Module):
         self.config = config
         H, Sd = _initial_state(1, n_modes, config.nTaps, None, default_device(device))
         self.register_buffer("H", H[0])
+        self.register_buffer("H_", torch.zeros_like(H[0]))
         self.register_buffer("Sd", Sd[0])
 
     def forward(self, sig, symb_ref=None):
-        y, H, _, _, Sd = _mimo_adapt_equalizer(sig, self.config, symb_ref=symb_ref,
-                                               H=self.H, Sd=self.Sd)
-        self.H, self.Sd = H, Sd
+        y, H, H_, _, Sd, _ = _mimo_adapt_equalizer(sig, self.config, symb_ref=symb_ref,
+                                                   H=self.H, H_=self.H_, Sd=self.Sd)
+        self.H, self.H_, self.Sd = H, H_, Sd
         return y
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from opticommpy_torch.kernels import _build
+from opticommpy_torch.utils.rng import as_device_tensor
 
 __all__ = ["bps_kernel", "bps_indices", "bps_indices_plain", "launches"]
 
@@ -148,7 +149,7 @@ def bps_kernel(sig, n_half, const_symb, n_phases):
     constellation (a numpy array enables the O(1) square-QAM distance).
     Returns the estimated phases in [0, pi/2) per symbol (and mode).
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     squeeze = sig.ndim == 1
     if squeeze:
         sig = sig[:, None]

@@ -31,6 +31,7 @@ import torch
 
 from opticommpy_torch.kernels import _build
 from opticommpy_torch.kernels.bps import _square_qam_levels
+from opticommpy_torch.utils.rng import as_device_tensor
 
 __all__ = ["ddpll_kernel", "ddpll_phases", "ddpll_plain", "loop_coefs", "launches"]
 
@@ -172,7 +173,7 @@ def ddpll_kernel(sig, ts, kv, tau1, tau2, const_symb, symb_tx=None, pilot_ind=No
     columns is recovered in one launch. ``symb_tx`` gives the known symbols
     of the ``pilot_ind`` rows (zero columns are added if it has fewer).
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     squeeze = sig.ndim == 1
     if squeeze:
         sig = sig[:, None]

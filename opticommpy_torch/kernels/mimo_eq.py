@@ -33,6 +33,7 @@ import torch
 from opticommpy_torch.kernels import _build
 from opticommpy_torch.kernels._build import device_tables
 from opticommpy_torch.kernels.bps import _quantize, _square_qam_levels
+from opticommpy_torch.utils.rng import as_device_tensor
 
 __all__ = ["mimo_eq_kernel", "mimo_eq_kernel_batch", "mimo_eq_stage",
            "mimo_eq_stage_batch", "mimo_eq_stage_plain",
@@ -302,7 +303,7 @@ def mimo_eq_kernel(sig, symb_ref, const, alg="lms", n_taps=15, sps=2,
     (nSym, modes) reference (None for the blind rules). Returns (equalized
     symbols (nSym, modes) complex64, taps H (modes, modes, n_taps)).
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     const = np.asarray(const).astype(np.complex64)
     sig_pad, ref, h0 = _kernel_inputs(
         sig[None], None if symb_ref is None else torch.as_tensor(symb_ref)[None],
@@ -324,7 +325,7 @@ def mimo_eq_kernel_batch(sig, symb_ref, const, alg="lms", n_taps=15, sps=2,
     result equals :func:`mimo_eq_kernel`. Returns (y (B, nSym, modes)
     complex64, H (B, modes, modes, n_taps)).
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     const = np.asarray(const).astype(np.complex64)
     sig_pad, ref, h0 = _kernel_inputs(sig, symb_ref, _REF_NEEDED.get(alg),
                                       n_taps, sps, H0)

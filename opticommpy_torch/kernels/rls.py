@@ -33,6 +33,7 @@ from opticommpy_torch.kernels import _build
 from opticommpy_torch.kernels._build import device_tables
 from opticommpy_torch.kernels.bps import _quantize, _square_qam_levels
 from opticommpy_torch.kernels.mimo_eq import _kernel_inputs as _pad_inputs
+from opticommpy_torch.utils.rng import as_device_tensor
 
 __all__ = ["mimo_rls_kernel", "mimo_rls_kernel_batch", "rls_stage",
            "rls_stage_batch", "rls_stage_plain", "chunk_symbols", "launches",
@@ -252,7 +253,7 @@ def mimo_rls_kernel_batch(sig, symb_ref, const, alg="rls", n_taps=15, sps=2,
     nSym, modes) complex64, H (B, modes, modes, n_taps), Sd (B, modes,
     n_taps, n_taps)).
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     sig_pad, ref, h0, sd0 = _kernel_inputs(sig, symb_ref, alg, n_taps, sps, H0, Sd0)
     return rls_stage_batch(sig_pad, ref, h0, sd0, const, alg, lam, sps, n_taps,
                            0, ref.shape[1])
@@ -268,7 +269,7 @@ def mimo_rls_kernel(sig, symb_ref, const, alg="rls", n_taps=15, sps=2,
     modes) complex64, H (modes, modes, n_taps), Sd (modes, n_taps,
     n_taps)).
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     const = np.asarray(const).astype(np.complex64)
     ref_b = None if symb_ref is None else torch.as_tensor(symb_ref)[None]
     h0_b = None if H0 is None else torch.as_tensor(H0)[None]

@@ -54,7 +54,7 @@ def linear_fiber_channel(e_in, config: LinearFiberConfig):
     """
     if config.Fs is None:
         raise ValueError("Simulation sampling frequency (Fs) not provided.")
-    e_in = torch.as_tensor(e_in)
+    e_in = as_device_tensor(e_in)
     squeeze = e_in.ndim == 1
     if squeeze:
         e_in = e_in[:, None]
@@ -291,7 +291,7 @@ def manakov_ssf(e_in, config: SSFMConfig, generator=None, save_all_spans=False):
         raise ValueError("Simulation sampling frequency (Fs) not provided.")
     cdtype = _solver_cdtype(config)
     real_dtype = torch.float64 if cdtype == torch.complex128 else torch.float32
-    e_in = torch.as_tensor(e_in).to(cdtype)
+    e_in = as_device_tensor(e_in).to(cdtype)
     n = e_in.shape[0]
     e = torch.stack([e_in[:, 0::2].T, e_in[:, 1::2].T]).contiguous()
 

@@ -62,14 +62,15 @@ def pm(e_in, u, v_pi):
 
 def mzm(e_in, u, config: MZMConfig = MZMConfig()):
     """Mach-Zehnder amplitude modulator (reference devices.py:94)."""
-    return calc_mzm(torch.as_tensor(e_in), config.Vpi, torch.as_tensor(u),
+    e_in = as_device_tensor(e_in)
+    return calc_mzm(e_in, config.Vpi, torch.as_tensor(u).to(e_in.device),
                     config.Vb, config.ER)
 
 
 def iqm(e_in, u, config: IQMConfig = IQMConfig()):
     """IQ modulator: two MZMs + 90-degree combiner (reference devices.py:147)."""
-    e_in = torch.as_tensor(e_in)
-    u = torch.as_tensor(u)
+    e_in = as_device_tensor(e_in)
+    u = torch.as_tensor(u).to(e_in.device)
     root2 = math.sqrt(2.0)
     eo_i = calc_mzm(e_in / root2, config.Vpi, u.real, config.VbI, config.ERI)
     eo_q = calc_mzm(e_in / root2, config.Vpi, u.imag, config.VbQ, config.ERQ)
@@ -82,7 +83,7 @@ def pbs(e, theta=0.0):
     Accepts (N,) single-pol (second pol empty) or (N, 2) input; returns
     (Ex, Ey).
     """
-    e = torch.as_tensor(e)
+    e = as_device_tensor(e)
     if e.ndim == 1:
         e = torch.stack([e, torch.zeros_like(e)], dim=1)
     th = torch.tensor(theta, dtype=torch.float32)
@@ -107,7 +108,7 @@ def photodiode(e, config: PhotodiodeConfig = None, generator=None):
     """
     if config is None:
         config = PhotodiodeConfig()
-    e = torch.as_tensor(e)
+    e = as_device_tensor(e)
     if e.ndim > 1 and e.shape[1] > 1:
         ipd = config.R * torch.sum(torch.abs(e) ** 2, dim=1)
     else:
@@ -140,7 +141,9 @@ def photodiode(e, config: PhotodiodeConfig = None, generator=None):
 
 def balanced_pd(e1, e2, config: PhotodiodeConfig = None, generator=None):
     """Balanced photodiode pair: i1 - i2 (reference devices.py:402)."""
-    generator = ensure_generator(generator, torch.as_tensor(e1).device)
+    e1 = as_device_tensor(e1)
+    e2 = torch.as_tensor(e2).to(e1.device)
+    generator = ensure_generator(generator, e1.device)
     return photodiode(e1, config, generator) - photodiode(e2, config, generator)
 
 
@@ -149,7 +152,7 @@ def optical_hybrid_2x4(e_s, e_lo):
 
     Returns the four output fields as a (4, N) tensor.
     """
-    e_s = torch.as_tensor(e_s)
+    e_s = as_device_tensor(e_s)
     e_lo = torch.as_tensor(e_lo).to(e_s.device)
     T = torch.tensor([[0.5, 0.5j, 0.5j, -0.5],
                       [0.5j, -0.5, 0.5, 0.5j],
@@ -172,7 +175,7 @@ def coherent_receiver(e_s, e_lo, config_fe: CoherentFrontendConfig = None,
     fs = config_fe.Fs
     if config_pd is None:
         config_pd = PhotodiodeConfig(ideal=True, Fs=fs)
-    e_s = torch.as_tensor(e_s)
+    e_s = as_device_tensor(e_s)
     generator = ensure_generator(generator, e_s.device)
     eo = optical_hybrid_2x4(e_s, e_lo)
     s_i = balanced_pd(eo[1, :], eo[0, :], config_pd, generator)
@@ -194,7 +197,7 @@ def pdm_coherent_receiver(e_s, e_lo, config_fe: PDMFrontendConfig = None,
     fs = config_fe.Fs
     if config_pd is None:
         config_pd = PhotodiodeConfig(ideal=True, Fs=fs)
-    e_s = torch.as_tensor(e_s)
+    e_s = as_device_tensor(e_s)
     generator = ensure_generator(generator, e_s.device)
     e_lo_x, e_lo_y = pbs(torch.as_tensor(e_lo).to(e_s.device), theta=math.pi / 4)
     e_s_x, e_s_y = pbs(e_s, theta=config_fe.polRotation)
@@ -229,7 +232,7 @@ def edfa(e_in, config: EDFAConfig = None, generator=None):
         raise ValueError("EDFA gain should be a positive scalar")
     if config.NF < 3:
         raise ValueError("The minimal EDFA noise figure is 3 dB")
-    e_in = torch.as_tensor(e_in)
+    e_in = as_device_tensor(e_in)
     nf_lin = 10 ** (config.NF / 10)
     g_lin = 10 ** (config.G / 10)
     nsp = (g_lin * nf_lin - 1) / (2 * (g_lin - 1))

@@ -1,5 +1,6 @@
 """DSP primitives (port of ``opticommpy_tpu/ops``): filtering, noise,
-modulator transfer functions and signal conditioning."""
+modulator transfer functions, signal conditioning and whitening-filter
+estimation."""
 
 from opticommpy_torch.ops.filtering import (
     fir_filter,
@@ -32,6 +33,11 @@ from opticommpy_torch.ops.signal import (
     symbol_sync,
     upsample,
 )
+from opticommpy_torch.ops.whitening import (
+    autocorr,
+    estimate_whitening_filter,
+    levinson,
+)
 
 __all__ = [
     "fir_filter",
@@ -60,4 +66,7 @@ __all__ = [
     "signal_power",
     "symbol_sync",
     "upsample",
+    "autocorr",
+    "estimate_whitening_filter",
+    "levinson",
 ]

@@ -9,6 +9,8 @@ tap design (:func:`rrc_taps`, :func:`rc_taps`, :func:`pulse_shape`,
 import numpy as np
 import torch
 
+from opticommpy_torch.utils.rng import as_device_tensor
+
 __all__ = [
     "fir_filter",
     "overlap_save",
@@ -41,7 +43,7 @@ def fir_filter(h, x):
     at once by one FFT convolution of next-power-of-two length. Returns
     complex64 if ``x`` or ``h`` is complex, else float32.
     """
-    x = torch.as_tensor(x)
+    x = as_device_tensor(x)
     h = _as_tensor(h, x.device)
     squeeze = x.ndim == 1
     if squeeze:
@@ -66,7 +68,7 @@ def overlap_save(x, h, nfft=None, freq_domain_filter=False):
     frequency response centered at DC if ``freq_domain_filter=True``.
     ``nfft`` defaults to the next power of two of max(N, K).
     """
-    x = torch.as_tensor(x)
+    x = as_device_tensor(x)
     h = _as_tensor(h, x.device)
     k = h.shape[0]
     if nfft is None:

@@ -51,12 +51,12 @@ def _power(x):
 
 def sig_pow(x):
     """Average power ``mean(|x|^2)`` over all elements (core.py:50)."""
-    return torch.mean(torch.abs(torch.as_tensor(x)) ** 2)
+    return torch.mean(torch.abs(as_device_tensor(x)) ** 2)
 
 
 def signal_power(x):
     """Total power: sum over modes of the per-mode average power (core.py:69)."""
-    x = torch.as_tensor(x)
+    x = as_device_tensor(x)
     if x.ndim == 1:
         x = x[:, None]
     return torch.sum(torch.mean(_power(x), dim=0))
@@ -64,7 +64,7 @@ def signal_power(x):
 
 def pnorm(x):
     """Normalize ``x`` to unit average power (global mean, core.py:701)."""
-    x = torch.as_tensor(x)
+    x = as_device_tensor(x)
     return x / torch.sqrt(torch.mean(_power(x)))
 
 
@@ -98,13 +98,13 @@ def pnorm_rows(x):
 
 def anorm(x):
     """Normalize ``x`` to unit peak amplitude (core.py:720)."""
-    x = torch.as_tensor(x)
+    x = as_device_tensor(x)
     return x / torch.amax(torch.abs(x))
 
 
 def upsample(x, factor):
     """Insert ``factor-1`` zeros between samples along axis 0 (core.py:395)."""
-    x = torch.as_tensor(x)
+    x = as_device_tensor(x)
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
@@ -157,7 +157,7 @@ def clock_sampling_interp(x, in_fs, out_fs, jitter_rms=0.0, generator=None):
     jitter without a generator raises, as the JAX package does without a
     key.
     """
-    x = torch.as_tensor(x)
+    x = as_device_tensor(x)
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
@@ -195,7 +195,7 @@ def decimate(x, sps_in, sps_out=1):
     For each mode, picks the sampling phase with maximum variance, rolls the
     signal there, then keeps every ``sps_in // sps_out``-th sample.
     """
-    x = torch.as_tensor(x)
+    x = as_device_tensor(x)
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
@@ -212,7 +212,7 @@ def decimate(x, sps_in, sps_out=1):
 
 def resample(x, in_fs, out_fs, n_taps=501):
     """Rational/arbitrary resampling with anti-aliasing FIRs (core.py:494)."""
-    x = torch.as_tensor(x)
+    x = as_device_tensor(x)
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
@@ -238,7 +238,8 @@ def _xcorr_full(a, v):
 
 def finddelay(x, y):
     """Delay between x and y via FFT cross-correlation argmax (core.py:678)."""
-    x, y = torch.as_tensor(x), torch.as_tensor(y)
+    x = as_device_tensor(x)
+    y = torch.as_tensor(y).to(x.device)
     xcorr = torch.abs(_xcorr_full(x, y))
     return torch.argmax(xcorr) - x.shape[0] + 1
 
@@ -263,7 +264,8 @@ def symbol_sync(rx, tx, sps, mode="amp"):
     order and argmaxes take the first of equal maxima, so ties resolve the
     same way. Returns the synchronized transmit sequence.
     """
-    rx, tx = torch.as_tensor(rx), torch.as_tensor(tx)
+    rx = as_device_tensor(rx)
+    tx = torch.as_tensor(tx).to(rx.device)
     squeeze = rx.ndim == 1
     if squeeze:
         rx = rx[:, None]
@@ -323,7 +325,7 @@ def symbol_sync(rx, tx, sps, mode="amp"):
 def moving_average(x, window):
     """Sliding-window moving average with edge zero-padding (core.py:829),
     as a cumulative-sum difference like the JAX package's."""
-    x = torch.as_tensor(x)
+    x = as_device_tensor(x)
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
@@ -340,7 +342,7 @@ def delay_signal(sig, delay, fs=1.0):
     The signal is zero-padded by ceil(|delay*fs|)+1 to avoid circular wrap,
     delayed with ``exp(-j*2*pi*f*delay)`` and cropped back (core.py:880).
     """
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     squeeze = sig.ndim == 1
     if squeeze:
         sig = sig[:, None]
@@ -360,7 +362,7 @@ def delay_signal(sig, delay, fs=1.0):
 
 def iq_mixing(sig, fs, amp_imb_db=0.0, phase_imb=0.0, time_skew=0.0):
     """Apply IQ amplitude/phase imbalance and IQ time skew (core.py:925)."""
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     eps = 10 ** (amp_imb_db / 20) - 1
     k1 = ((1 - eps) * cmath.exp(1j * phase_imb / 2) / 2
           + (1 + eps) * cmath.exp(-1j * phase_imb / 2) / 2)

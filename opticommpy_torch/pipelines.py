@@ -52,6 +52,7 @@ from opticommpy_torch.dsp.equalization import (
 )
 from opticommpy_torch.ops.filtering import fir_filter, pulse_shape
 from opticommpy_torch.ops.signal import decimate, pnorm, row_mean
+from opticommpy_torch.utils.rng import as_device_tensor
 
 __all__ = ["CoherentDSPConfig", "coherent_dsp_chain", "coherent_dsp_chain_batch",
            "coherent_dsp_serve", "coherent_coded_serve", "IMDDConfig", "imdd_dsp_chain_batch"]
@@ -145,7 +146,7 @@ def coherent_dsp_chain(sig, symb_ref, config: CoherentDSPConfig = CoherentDSPCon
     cfg = config
     if cfg.eqBackend not in ("scan", "pallas", "pallas-lms"):
         raise ValueError(f"unknown eqBackend {cfg.eqBackend!r}")
-    sig = torch.as_tensor(sig)
+    sig = as_device_tensor(sig)
     symb_ref = torch.as_tensor(symb_ref).to(sig.device)
     fs_dsp = cfg.Rs * cfg.SpS_dsp
 
@@ -230,7 +231,7 @@ def coherent_dsp_chain_batch(sig_batch, symb_ref_batch,
             "crMethod='ffw' (the feedforward stage runs per signal; the "
             "Gardner NCO recurrence has no batched kernel — run "
             "coherent_dsp_chain per signal for that)")
-    sig_batch = torch.as_tensor(sig_batch)
+    sig_batch = as_device_tensor(sig_batch)
     symb_ref_batch = torch.as_tensor(symb_ref_batch).to(sig_batch.device)
     fs_dsp = cfg.Rs * cfg.SpS_dsp
     pulse = pulse_shape(cfg.pulseType, cfg.SpS_in, cfg.nFilterTaps,
@@ -303,7 +304,7 @@ def coherent_dsp_serve(sig_batch, H_batch, config: CoherentDSPConfig = CoherentD
     from opticommpy_torch.kernels.bps import bps_kernel
 
     cfg = config
-    sig_batch = torch.as_tensor(sig_batch).to(torch.complex64)
+    sig_batch = as_device_tensor(sig_batch).to(torch.complex64)
     H_batch = torch.as_tensor(H_batch).to(sig_batch.device, torch.complex64)
     squeeze = sig_batch.ndim == 2
     if squeeze:
@@ -367,7 +368,6 @@ def coherent_coded_serve(sig_batch, H_batch, config: CoherentDSPConfig = Coheren
     from opticommpy_torch.comm.fec import LDPCConfig, decode_ldpc, standard_ldpc
     from opticommpy_torch.comm.metrics import calc_llr
     from opticommpy_torch.comm.modulation import bit_map
-    from opticommpy_torch.utils.rng import as_device_tensor
 
     if fec_graph is None:
         fec_graph, _ = standard_ldpc("DVBS2", 64800, "4/5")
@@ -437,7 +437,6 @@ def imdd_dsp_chain_batch(i_rx_batch, symb_ref_batch, config: IMDDConfig = IMDDCo
     """
     from opticommpy_torch.dsp.equalization import DFEConfig, FFEConfig
     from opticommpy_torch.kernels.dfe import dfe_kernel, ffe_kernel
-    from opticommpy_torch.utils.rng import as_device_tensor
 
     cfg = config
     x = as_device_tensor(i_rx_batch)

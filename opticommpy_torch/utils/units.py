@@ -9,6 +9,8 @@ import math
 import torch
 from scipy.special import erfinv
 
+from opticommpy_torch.utils.rng import as_device_tensor
+
 __all__ = ["lin2db", "db2lin", "dbm2w", "w2dbm", "ber2qfactor", "llr2bit_prob"]
 
 
@@ -50,6 +52,6 @@ def llr2bit_prob(llr):
     """LLRs to bit probabilities P(bit=1) by a stable sigmoid (reference
     ``optic/utils.py:329``): ``llr = log(P(b=0)/P(b=1))``, so
     ``P(b=1) = sigmoid(-llr)``."""
-    x = -torch.as_tensor(llr)
+    x = -as_device_tensor(llr)
     z = torch.exp(-torch.abs(x))
     return torch.where(x >= 0, 1.0 / (1.0 + z), z / (1.0 + z))

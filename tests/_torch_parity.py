@@ -1,12 +1,22 @@
 """Shared helpers for the tests that hold opticommpy_torch to opticommpy_tpu.
 
-Inputs are made from a seed with NumPy and handed to both packages as NumPy
-arrays; torch cannot reproduce ``jax.random`` streams, so noise is either
+Inputs are made from a seed with NumPy. The JAX package takes them as NumPy
+arrays; the port takes them as CPU tensors (:func:`cpu`), because the port's
+entry points send a NumPy input to the CUDA device and only a CPU tensor asks
+for the CPU. torch cannot reproduce ``jax.random`` streams, so noise is either
 drawn on the JAX side and passed to both, or switched off.
 """
 
 import numpy as np
 import torch
+
+
+def cpu(*arrays):
+    """CPU tensors of NumPy arrays (or lists, scalars, JAX arrays): one tensor
+    for one argument, else a tuple. Each is a view of a C-ordered copy, so
+    a read-only or strided array is accepted."""
+    out = tuple(torch.from_numpy(np.ascontiguousarray(np.array(a))) for a in arrays)
+    return out[0] if len(out) == 1 else out
 
 
 def to_np(x):

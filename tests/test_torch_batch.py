@@ -214,17 +214,34 @@ def test_gradient_stages_reach_k3_once_per_pass():
 
 @pytest.mark.parametrize("change,error", [
     (dict(storeCoeff=True), ValueError),
-    (dict(runWL=True), NotImplementedError),
-    (dict(blockUpdate=16), NotImplementedError),
-    (dict(blockUpdate=4, alg=("nlms",)), NotImplementedError),
 ])
 def test_adapt_equalizer_batch_rejects(change, error):
+    """storeCoeff has no history return in the batch API: the JAX package's
+    ValueError, mirrored."""
     sig, sym = _batch(510, 2, 128)
     cfg = teq.MIMOEqualizerConfig(nTaps=7, M=16, backend="pallas", **change)
-    match = "storeCoeff" if error is ValueError else "ROADMAP"
-    with pytest.raises(error, match=match):
+    with pytest.raises(error, match="storeCoeff"):
         teq.mimo_adapt_equalizer_batch(torch.as_tensor(sig), cfg,
                                        symb_ref=torch.as_tensor(sym))
+
+
+@pytest.mark.parametrize("change", [
+    dict(runWL=True), dict(blockUpdate=16), dict(blockUpdate=4, alg=("nlms",))],
+    ids=["runWL", "block16", "block4_nlms"])
+def test_adapt_equalizer_batch_formerly_unported_match_jax(change):
+    """The batch trainer's options that raised NotImplementedError before
+    the port had them: the same configurations (2 signals of 64 symbols)
+    now match the JAX package's batch trainer, outputs, taps and errors."""
+    sig, sym = _batch(510, 2, 128)
+    jcfg = jeq.MIMOEqualizerConfig(nTaps=7, M=16, backend="pallas", **change)
+    y_j, H_j, e_j = jeq.mimo_adapt_equalizer_batch(sig, jcfg, symb_ref=sym,
+                                                   return_results=True)
+    y_t, H_t, e_t = teq.mimo_adapt_equalizer_batch(
+        torch.as_tensor(sig), config_from_jax(jcfg), symb_ref=torch.as_tensor(sym),
+        return_results=True)
+    np.testing.assert_allclose(to_np(y_t), np.asarray(y_j), rtol=0, atol=Y_ATOL)
+    np.testing.assert_allclose(to_np(H_t), np.asarray(H_j), rtol=0, atol=H_ATOL)
+    np.testing.assert_allclose(to_np(e_t), np.asarray(e_j), rtol=0, atol=Y_ATOL)
 
 
 # -- the batch chain on two small links (tests/test_pipelines.py:342-388) --
@@ -259,8 +276,9 @@ def _chain_cfg(**kw):
 
 
 @pytest.mark.parametrize("kw", [dict(mu=(2e-3,)),
-                                dict(mu=(5e-3, 2e-3), eqBackend="pallas")],
-                         ids=["lms", "pallas-schedule"])
+                                dict(mu=(5e-3, 2e-3), eqBackend="pallas"),
+                                dict(mu=(5e-3, 1e-3), eqBackend="pallas", blockUpdate=16)],
+                         ids=["lms", "pallas-schedule", "blocked-schedule"])
 def test_chain_batch_matches_jax(links, kw):
     sig_b, ref_b = links
     cfg = _chain_cfg(**kw)

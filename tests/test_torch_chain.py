@@ -137,3 +137,29 @@ def test_chain_clock_recovery_not_ported(link):
         with pytest.raises(ValueError, match="trim the reference"):
             tpipe.coherent_dsp_chain(torch.as_tensor(sig_rx[: 8 * 4096]),
                                      torch.as_tensor(d_ref[:4096]), config_from_jax(cfg))
+
+
+def test_chain_blocked_matches_jax(link):
+    """The chain with blockUpdate 16 (the JAX package's blocked main-path
+    test, tests/test_pipelines.py:52-58, on this link): the training stages
+    take the blocked route in both packages; the same symbol, BER and GMI
+    pins as the per-symbol chain."""
+    sig_rx, d_ref = link
+    cfg = CoherentDSPConfig(SpS_in=8, nFilterTaps=512, L=100, nTrain=N_TRAIN,
+                            mu=(5e-3, 1e-3), blockUpdate=16, eqBackend="pallas",
+                            cprBackend="pallas")
+    y_j = np.asarray(coherent_dsp_chain(sig_rx, d_ref, cfg)[0])
+    counts = (tbps.launches, tmimo.launches, tmimo.batch_launches)
+    y_t, _ = tpipe.coherent_dsp_chain(torch.as_tensor(sig_rx), torch.as_tensor(d_ref),
+                                      config_from_jax(cfg))
+    assert (tbps.launches, tmimo.launches, tmimo.batch_launches) == counts
+    _assert_symbols_close(y_t, y_j)
+    ref = d_ref[DISC:-100]
+    ber_j, _, _ = jmetrics.fast_ber_calc(y_j[DISC:-100], ref, 16, "qam")
+    gmi_j, _ = jmetrics.monte_carlo_gmi(y_j[DISC:-100], ref, 16, "qam")
+    ber_t, _, _ = tmetrics.fast_ber_calc(y_t[DISC:-100], torch.as_tensor(ref), 16, "qam")
+    gmi_t, _ = tmetrics.monte_carlo_gmi(y_t[DISC:-100], torch.as_tensor(ref), 16, "qam")
+    ber_j, gmi_j = np.asarray(ber_j), np.asarray(gmi_j)
+    assert np.all(ber_j < 2e-2), ber_j
+    assert np.all(to_np(ber_t) <= 2 * ber_j + 1e-4), (to_np(ber_t), ber_j)
+    assert np.all(np.abs(to_np(gmi_t) - gmi_j) <= 0.02), (to_np(gmi_t), gmi_j)

@@ -125,11 +125,23 @@ def test_equalizer_module_carries_taps():
     dict(runWL=True, alg=("cma",)), dict(blockUpdate=4, alg=("dd-lms",)),
     dict(runWL=True), dict(storeCoeff=True), dict(blockUpdate=16)])
 def test_unported_options_raise(change):
+    """The options that raised NotImplementedError before the port had them
+    (runWL, blockUpdate > 1, storeCoeff) now match the JAX package under
+    backend='pallas', which sends them to the scan and blocked rules: every
+    output of ``return_results``, Hiter included (the taps after every
+    symbol under storeCoeff). 256 symbols, so the blocked cases end on a
+    whole block (tests/test_torch_blocked.py has the remainders)."""
     sig, sym = mixed_polmux(31, 256)
-    cfg = teq.MIMOEqualizerConfig(nTaps=7, M=16, backend="pallas", **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teq.mimo_adapt_equalizer(torch.as_tensor(sig), cfg,
-                                 symb_ref=torch.as_tensor(sym))
+    jcfg = jeq.MIMOEqualizerConfig(nTaps=7, M=16, backend="pallas", **change)
+    out_j = jeq.mimo_adapt_equalizer(sig, jcfg, symb_ref=sym, return_results=True)
+    out_t = teq.mimo_adapt_equalizer(torch.as_tensor(sig), config_from_jax(jcfg),
+                                     symb_ref=torch.as_tensor(sym), return_results=True)
+    for a_t, a_j, atol in zip(out_t, out_j, (Y_ATOL, H_ATOL, H_ATOL, Y_ATOL, H_ATOL)):
+        assert a_t.shape == np.asarray(a_j).shape
+        np.testing.assert_allclose(to_np(a_t), np.asarray(a_j), rtol=0, atol=atol)
+    if change.get("storeCoeff"):
+        assert out_t[4].shape == (256, 2, 2, 7)
+        torch.testing.assert_close(out_t[4][-1], out_t[1], rtol=0, atol=0)
 
 
 @pytest.mark.gpu

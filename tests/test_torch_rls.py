@@ -233,10 +233,10 @@ def test_equalizer_module_carries_sd():
     assert eq.Sd.shape == (2, 7, 7) and "Sd" in dict(eq.named_buffers())
     torch.testing.assert_close(eq.Sd, torch.eye(7, dtype=torch.complex64).repeat(2, 1, 1))
     eq(s1, r1)
-    _, H1, _, _, Sd1 = teq._mimo_adapt_equalizer(s1, cfg, symb_ref=r1)
+    _, H1, _, _, Sd1, _ = teq._mimo_adapt_equalizer(s1, cfg, symb_ref=r1)
     torch.testing.assert_close(eq.Sd, Sd1, rtol=0, atol=0)
     y2 = eq(s2, r2)
-    y2_ref, H2, _, _, Sd2 = teq._mimo_adapt_equalizer(s2, cfg, symb_ref=r2, H=H1, Sd=Sd1)
+    y2_ref, H2, _, _, Sd2, _ = teq._mimo_adapt_equalizer(s2, cfg, symb_ref=r2, H=H1, Sd=Sd1)
     torch.testing.assert_close(y2, y2_ref, rtol=0, atol=0)
     torch.testing.assert_close(eq.Sd, Sd2, rtol=0, atol=0)
     y2_fresh = teq.mimo_adapt_equalizer(s2, cfg, symb_ref=r2, H=H1)

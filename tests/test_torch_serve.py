@@ -47,6 +47,7 @@ from opticommpy_torch.dsp import carrier_recovery as tcr  # noqa: E402
 from opticommpy_torch.dsp import equalization as teq  # noqa: E402
 from opticommpy_torch.kernels import bps as tbps  # noqa: E402
 from opticommpy_torch.kernels import ddpll as tddpll  # noqa: E402
+from opticommpy_torch.ops import filtering as tfilt  # noqa: E402
 from opticommpy_torch.ops import signal as tsig  # noqa: E402
 
 from _torch_parity import norm_qam, rel_err, require_cuda, to_np  # noqa: E402
@@ -301,7 +302,7 @@ def fused_case():
 def test_mimo_apply_fused_matches_staged_and_jax(fused_case, with_scale):
     sig, H, pulse, jcfg = fused_case
     tcfg = config_from_jax(jcfg)
-    x = teq.edc(fir_filter(pulse, torch.as_tensor(sig)), tcfg)
+    x = teq.edc(tfilt.fir_filter(pulse, torch.as_tensor(sig)), tcfg)
     s = torch.sqrt(torch.mean((x * x.conj()).real))
     y_staged = to_np(teq.mimo_apply(torch.as_tensor(H), x / s, 2))
     scale = float(s) if with_scale else None
@@ -344,7 +345,7 @@ def _staged(sig, H, cfg):
     then BPS (K1's entry), unwrap and derotation."""
     fs = cfg.Rs * cfg.SpS_dsp
     pulse = pulse_shape(cfg.pulseType, cfg.SpS_dsp, cfg.nFilterTaps, cfg.rollOff)
-    x = teq.edc(fir_filter(pulse.astype(np.float32), sig),
+    x = teq.edc(tfilt.fir_filter(pulse.astype(np.float32), sig),
                 teq.EDCConfig(L=cfg.L, D=cfg.D, Fc=cfg.Fc, Fs=fs, Rs=cfg.Rs))
     y = teq.mimo_apply(H, x / torch.sqrt(torch.mean((x * x.conj()).real)), cfg.SpS_dsp)
     ph = tbps.bps_kernel(y, cfg.cpr_window // 2, norm_qam(cfg.M), cfg.cpr_phases)
