@@ -7,9 +7,13 @@ Phases:
 2. build: compiles ``opticommpy_torch/csrc/*.cu`` with nvcc (one process
    per source, in parallel) into ``build/torch_kernels/``.
 3. kernel vs plain: each Hopper kernel against its plain PyTorch version
-   on the card, all timed with CUDA events: K1 blind phase search at the
-   main path's shape (65,536 symbols x 2 modes, 64 test phases, 75-symbol
-   window, 16-QAM) and on 8-PSK; K2, the MIMO equalizer, for each of its
+   on the card, all timed with CUDA events: K1 blind phase search bit for
+   bit (0 index mismatches, equal phases) at the chain's shape (65,536
+   symbols x 2 modes, 64 test phases, 75-symbol window, 16-QAM grid), path
+   C's (x 22 modes) and path I's (60,436 x 2, 16 points, window 51), on
+   8-PSK and at small cases that run the rest of its instances
+   (``BPS_CASES``), and its threshold slicer against the division on all
+   2^32 float32 inputs per grid; K2, the MIMO equalizer, for each of its
    five rules at 4,096 symbols, 2x2, 15 taps, and at the main path's first
    training pass (12,000 symbols, da-rde); K3, the batched equalizer, for
    the five rules at B=3 x 4,096 symbols, bit-identical per signal to K2,
@@ -474,7 +478,6 @@ JAX_DBP = {
     },
 }
 
-BPS_MAX_MISMATCH = 0.01  # the JAX package's near-tie rule
 EQ_Y_ATOL, EQ_H_ATOL = 2e-4, 1e-3  # the JAX package's scan-vs-kernel pins
 CR_ATOL, PLL_ATOL = 1e-5, 2e-4  # Gardner kernel vs loop; DD-PLL kernel vs scan
 SERVE_REL = 5e-2  # serve vs the staged composition (tests/test_pipelines.py:293)
@@ -499,6 +502,25 @@ def _cuda_ms(fn, reps, warmup=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, kernel, reps):
+    """(mean device milliseconds per call of ``fn`` in the kernels whose name
+    holds ``kernel``, device kernels of any name per call), by
+    torch.profiler: without the host's gaps between calls, which CUDA
+    events around back-to-back calls include."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    mine = [e.self_device_time_total for e in kernels if kernel in e.name]
+    _check(len(mine) == reps, f"profiler saw {len(mine)} {kernel} launches for {reps} calls")
+    return sum(mine) / reps / 1e3, len(kernels) / reps
 
 
 def _sm_clock_mhz():
@@ -539,11 +561,13 @@ def _bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _bps_cost(n, modes, n_phases):
-    """(bytes, flops) of BPS: complex64 in, int32 out; per (symbol, test
-    phase) a rotation and the square-QAM distance (~25 operations) and the
+def _bps_cost(n, modes, n_phases, m_points=None):
+    """(bytes, flops) of BPS: complex64 in, float32 phases out; per (symbol,
+    test phase) a rotation and the square-QAM distance (~25 operations) or
+    the minimum over ``m_points`` points (6 each, 10 besides), and the
     window sum as a running sum (an add and a subtract)."""
-    return n * modes * (8 + 4), n * modes * n_phases * (25 + 2)
+    per = 25 + 2 if m_points is None else 6 * m_points + 10
+    return n * modes * (8 + 4), n * modes * n_phases * per
 
 
 def _eq_cost(n_batch, n_sym, modes=2, n_taps=15, sps=2):
@@ -744,31 +768,109 @@ def phase_batch_kernels_vs_plain(dev, const):
     return report
 
 
-def phase_kernels_vs_plain(dev, const):
-    from opticommpy_torch.kernels import bps, mimo_eq
+# K1's cases: (label, constellation, N, modes, n_half, B). The chain's,
+# path C's and path I's calls (16 points in registers), 8-PSK, and small
+# ones that run the rest of the kernel's instances and edges: 4-QAM on the
+# grid of 2 levels at n_half 0 and an odd N, 64-QAM on the searched grid, 64
+# points in shared memory at B 32.
+BPS_CASES = (
+    ("chain", "qam16", 65536, 2, 37, 64),
+    ("path C", "qam16", 65536, 22, 37, 64),
+    ("path I", "qam16 tensor", 60436, 2, 25, 64),
+    ("8-PSK", "psk8", 20000, 2, 37, 64),
+    ("4-QAM, n_half 0", "qam4", 1001, 3, 0, 32),
+    ("64-QAM", "qam64", 4099, 2, 12, 64),
+    ("64 points", "qam64 tensor", 3001, 1, 25, 32),
+)
+BPS_TIMED = ("chain", "path C", "path I")
 
-    rng = np.random.default_rng(1)
-    report = {}
 
-    # K1: blind phase search
-    psk = np.exp(2j * np.pi * np.arange(8) / 8).astype(np.complex64)
-    for label, c, n in (("qam16", const, 65536), ("psk8", psk, 20000)):
-        sig = torch.as_tensor(_noisy(rng, n, 2, c), device=dev)
-        est_k = bps.bps_kernel(sig, 37, c, 64)
-        idx_k = bps.bps_indices(sig, 37, c, 64)
-        idx_p = bps.bps_indices_plain(sig, 37, c, 64)
-        est_p = bps._test_phases(64, dev)[0][idx_p]
+def _bps_const(kind):
+    """A K1 case's constellation as the callers pass it: a NumPy array (the
+    grid where it is a square QAM) or, as ``cpr`` passes it, a CPU tensor."""
+    from opticommpy_torch.comm.modulation import norm_const
+
+    name = kind.split()[0]
+    if name == "psk8":
+        c = np.exp(2j * np.pi * np.arange(8) / 8).astype(np.complex64)
+    else:
+        c = np.asarray(norm_const(int(name[3:]), "qam"), np.complex64)
+    return torch.as_tensor(c) if kind.endswith("tensor") else c
+
+
+def phase_bps_kernel(dev, rng):
+    """K1 against ``bps_indices_plain`` at every case of BPS_CASES: 0 index
+    mismatches and the phases ``bps_kernel`` writes equal to the plain
+    indices' phases, one launch counted per call; times at the main path's
+    shapes; the threshold slicer of every grid the cases use against the
+    division on all 2^32 float32 inputs."""
+    from opticommpy_torch.kernels import bps
+
+    report = None
+    grids = {}
+    for label, kind, n, modes, n_half, n_ph in BPS_CASES:
+        c = _bps_const(kind)
+        c_np = np.asarray(c)
+        sig = torch.as_tensor(_noisy(rng, n, modes, c_np), device=dev)
+        before = bps.launches
+        est_k = bps.bps_kernel(sig, n_half, c, n_ph)
+        idx_k = bps.bps_indices(sig, n_half, c, n_ph)
+        n_launch = bps.launches - before
+        idx_p = bps.bps_indices_plain(sig, n_half, c, n_ph)
+        est_p = bps._test_phases(n_ph, dev)[0][idx_p]
         torch.cuda.synchronize()
-        mismatch = float((idx_k != idx_p).float().mean())
+        mismatch = int((idx_k != idx_p).sum())
+        same_phase = bool(torch.equal(est_k, est_p))
         err = float((est_k - est_p).abs().max())
-        ms = _cuda_ms(lambda: bps.bps_indices(sig, 37, c, 64), 20)
-        plain_ms = _cuda_ms(lambda: bps.bps_indices_plain(sig, 37, c, 64), 5)
-        print(f"K1 bps {label} ({n}x2, B=64, n_half=37): index mismatch {mismatch:.2e}, "
-              f"max |phase err| {err:.3e} rad, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        _check(mismatch < BPS_MAX_MISMATCH, f"BPS kernel disagrees with plain ({label})")
-        if label == "qam16":
-            report["bps"] = _with_bound(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
-                                        *_bps_cost(n, 2, 64))
+        grid = None
+        if isinstance(c, np.ndarray):
+            grid = bps._square_qam_levels(c.real, c.imag)
+        if grid is not None:
+            grids[grid] = bps.slicer_tables(*grid)[0]
+        route = ("grid, selects" if grid and grids[grid] == bps.GRID4 else
+                 "grid, search" if grid else f"{len(c_np)} points")
+        line = (f"K1 bps {label} ({n}x{modes}, B={n_ph}, n_half={n_half}, {route}): "
+                f"index mismatches {mismatch} of {idx_p.numel()}, phases equal {same_phase}, "
+                f"launches {n_launch} for 2 calls")
+        entry = dict(max_abs_err=err, index_mismatches=mismatch)
+        if label in BPS_TIMED:
+            entry["ms"] = _cuda_ms(lambda: bps.bps_kernel(sig, n_half, c, n_ph), 20)
+            entry["sm_clock_mhz"] = _sm_clock_mhz()
+            entry["device_ms"], per_call = _device_ms(
+                lambda: bps.bps_kernel(sig, n_half, c, n_ph), "bps_kernel", 20)
+            _check(per_call == 1, f"bps_kernel launched {per_call} kernels a call, not K1 "
+                   f"alone ({label})")
+            entry["plain_ms"] = _cuda_ms(lambda: bps.bps_indices_plain(sig, n_half, c, n_ph), 3)
+            entry["cycles_per_symbol"] = (entry["ms"] * 1e-3 * entry["sm_clock_mhz"] * 1e6
+                                          / (n * modes))
+            _with_bound(entry, *_bps_cost(n, modes, n_ph, None if grid else len(c_np)))
+            line += (f"; kernel {entry['ms']:.4f} ms ({entry['cycles_per_symbol']:.2f} cycles "
+                     f"per symbol and mode at {entry['sm_clock_mhz']:.0f} MHz), plain "
+                     f"{entry['plain_ms']:.2f} ms, bound {entry['bound_ms']:.5f} ms "
+                     f"({entry['bound_by']}, {entry['bound_ms'] / entry['ms']:.1%}); the "
+                     f"kernel's own device time {entry['device_ms']:.4f} ms "
+                     f"({entry['bound_ms'] / entry['device_ms']:.1%} of the bound; profiler)")
+        print(line)
+        _check(mismatch == 0 and same_phase and n_launch == 2,
+               f"K1 disagrees with its plain version or did not launch once a call ({label})")
+        if report is None:
+            report = entry
+        else:
+            report.setdefault("cases", {})[label] = entry
+    for (lo, step, n_lev), route in grids.items():
+        t0 = time.perf_counter()
+        count, first = bps.bps_exact_check(lo, step, n_lev, dev)
+        print(f"K1 threshold slicer vs the division over all 2^32 float32 inputs ({n_lev} "
+              f"levels, lo {lo}, step {step}, route {route}; {time.perf_counter() - t0:.3f} s): "
+              f"{count} differ {first}")
+        _check(count == 0, f"K1's threshold slicer differs from the division ({n_lev} levels)")
+    return report
+
+
+def phase_kernels_vs_plain(dev, const):
+    from opticommpy_torch.kernels import mimo_eq
+
+    report = {"bps": phase_bps_kernel(dev, np.random.default_rng(1))}
 
     # K2: the adaptive equalizer recurrence, each rule
     def polmux(n_sym, seed):

@@ -35,8 +35,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "bps_launch": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _F, _F, _F, _I,
-                   _I, _P, _P],
+    "bps_launch": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "bps_smem_bytes": [_I, _I, _I, _I],
+    "bps_exact_check": [ctypes.c_ulonglong, ctypes.c_ulonglong, _I, _P, _P, _I, _F, _F, _F,
+                        _P, _P],
     "mimo_eq_launch": [_I, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I,
                        _I, _I, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _I,
                        _F, _I, _P, _P, _P, _P],

@@ -3,7 +3,8 @@ package's Pallas kernel (interpret mode) and broadcast BPS.
 
 Tolerance: the phase-index decisions may differ only at float32 near-ties
 between test phases, on fewer than 1% of the symbols (the JAX package's
-own rule, tests/test_pallas_kernels.py).
+own rule, tests/test_pallas_kernels.py). On the card the kernel is held to
+its plain version bit for bit.
 """
 
 import numpy as np
@@ -87,15 +88,67 @@ def test_cpr_matches_jax():
         tcr.cpr(torch.as_tensor(sig), tcr.CPRConfig(alg="pll"))
 
 
+def _const(kind):
+    """A case's constellation as the callers pass it: a NumPy array (the
+    grid where it is a square QAM) or, as ``cpr`` passes it, a CPU tensor."""
+    name = kind.split()[0]
+    c = _psk8() if name == "psk8" else norm_qam(int(name[3:]))
+    return torch.as_tensor(c) if kind.endswith("tensor") else c
+
+
+# (constellation, N, modes, n_half, B): the chain's call, path C's, path I's
+# (the M-point route at window 51), 8-PSK, and small cases that run the
+# kernel's other instances and edges
+GPU_CASES = [
+    ("qam16", 65536, 2, 37, 64),
+    ("qam16", 65536, 22, 37, 64),
+    ("qam16 tensor", 60436, 2, 25, 64),
+    ("psk8", 20000, 2, 37, 64),
+    ("qam4", 1001, 3, 0, 32),
+    ("qam64", 4099, 2, 12, 64),
+    ("qam64 tensor", 3001, 1, 25, 32),
+    ("qam16", 50, 2, 37, 64),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("const_kind", ["qam16", "psk8"])
-def test_kernel_matches_plain_on_gpu(const_kind):
+@pytest.mark.parametrize("kind,n,modes,n_half,n_phases", GPU_CASES)
+def test_kernel_matches_plain_on_gpu(kind, n, modes, n_half, n_phases):
+    """K1 equals its plain version bit for bit: every index, and the phases
+    ``bps_kernel`` writes; one launch a call."""
     dev = require_cuda()
-    const = norm_qam(16) if const_kind == "qam16" else _psk8()
-    sig = torch.as_tensor(noisy_symbols(8, 20000, 2, const), device=dev)
+    const = _const(kind)
+    sig = torch.as_tensor(noisy_symbols(8, n, modes, np.asarray(const)), device=dev)
     before = tbps.launches
-    idx_k = tbps.bps_indices(sig, 37, const, 64)
-    assert tbps.launches == before + 1
-    idx_p = tbps.bps_indices_plain(sig, 37, const, 64)
+    idx_k = tbps.bps_indices(sig, n_half, const, n_phases)
+    est_k = tbps.bps_kernel(sig, n_half, const, n_phases)
+    assert tbps.launches == before + 2
+    idx_p = tbps.bps_indices_plain(sig, n_half, const, n_phases)
     torch.cuda.synchronize()
-    assert float((idx_k != idx_p).float().mean()) < MAX_MISMATCH
+    assert idx_k.dtype == torch.int64 and est_k.dtype == torch.float32
+    assert int((idx_k != idx_p).sum()) == 0
+    assert torch.equal(est_k, tbps._test_phases(n_phases, idx_p.device)[0][idx_p])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("run_blocks", [1, 2, 3, 7, 1000])
+def test_kernel_bits_do_not_depend_on_run_length_on_gpu(run_blocks):
+    """Blocks are counted from the padded start, not from a CTA's run: any
+    number of output blocks per CTA gives the same bits."""
+    dev = require_cuda()
+    const = norm_qam(16)
+    sig = torch.as_tensor(noisy_symbols(9, 7000, 3, const), device=dev)
+    ref = tbps.bps_indices_plain(sig, 37, const, 64)
+    out = tbps._launch(sig, 37, const, 64, tbps._OUT_INDEX, run_blocks=run_blocks)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [4, 16, 64])
+def test_threshold_slicer_on_every_float32_on_gpu(M):
+    """The kernel's threshold slicer takes every one of the 2^32 float32
+    inputs to the level of the true division (bps_exact_check)."""
+    dev = require_cuda()
+    c = norm_qam(M)
+    count, first = tbps.bps_exact_check(*tbps._square_qam_levels(c.real, c.imag), dev)
+    assert count == 0, first
