@@ -1,7 +1,7 @@
-"""Communication-layer algorithms: modulation, sources, metrics, LDPC codes
-and FEC (port of ``opticommpy_tpu/comm``)."""
+"""Communication-layer algorithms: modulation, sources, metrics, OFDM, LDPC
+codes and FEC (port of ``opticommpy_tpu/comm``)."""
 
-from opticommpy_torch.comm import codes, fec, metrics, modulation, sources  # noqa: F401
+from opticommpy_torch.comm import codes, fec, metrics, modulation, ofdm, sources  # noqa: F401
 from opticommpy_torch.comm.metrics import bert, qfunc, theory_ber  # noqa: F401
 from opticommpy_torch.comm.modulation import (  # noqa: F401
     bit_map,

@@ -46,6 +46,7 @@ __all__ = [
     "write_alist",
     "parse_alist",
     "summarize_alist_folder",
+    "plot_binary_matrix",
     "hamming_parity_check_matrix",
     "encode_hamming",
     "decode_hamming",
@@ -276,6 +277,28 @@ def summarize_alist_folder(folder_path):
     table = "\n".join(lines)
     print(table)
     return table
+
+
+def plot_binary_matrix(H, ax=None):
+    """Scatter-plot the support of a binary matrix (reference fec.py:1075).
+    ``H`` may be a tensor (pulled to the host once), an array or a sparse
+    matrix; matplotlib is imported only here."""
+    import matplotlib.pyplot as plt
+
+    if isinstance(H, torch.Tensor):
+        H = H.detach().cpu().numpy()
+    H = _dense(H)
+    rows, cols = np.where(H == 1)
+    if ax is None:
+        ax = plt.gca()
+    ax.scatter(cols, rows, s=10 / max(H.shape[0], 1), color="blue")
+    ax.set_xlabel("Column indexes")
+    ax.set_ylabel("Row indexes")
+    ax.set_title(f"Matrix: {H.shape[0]} x {H.shape[1]}")
+    ax.set_xlim(0, H.shape[1])
+    ax.set_ylim(H.shape[0], 0)
+    ax.grid(True)
+    return ax
 
 
 def hamming_parity_check_matrix(m, extended=False):

@@ -27,6 +27,7 @@ __all__ = ["config_from_jax", "port_config_classes", "taps_from_numpy",
 def port_config_classes():
     """{class name: port config class} for every config the port copies."""
     from opticommpy_torch.comm.fec import LDPCConfig
+    from opticommpy_torch.comm.ofdm import OFDMConfig
     from opticommpy_torch.dsp.carrier_recovery import CPRConfig
     from opticommpy_torch.dsp.clock_recovery import (ClockRecoveryConfig,
                                                      FFWClockRecoveryConfig)
@@ -34,6 +35,8 @@ def port_config_classes():
                                                    MIMOEqualizerConfig, VolterraConfig)
     from opticommpy_torch.dsp.synchronization import SyncConfig
     from opticommpy_torch.models import config as model_config
+    from opticommpy_torch.models.amplification import EDFASMConfig
+    from opticommpy_torch.models.perturbation import PerturbationConfig
     from opticommpy_torch.models.tx import PAMTxConfig, WDMTxConfig
     from opticommpy_torch.pipelines import CoherentDSPConfig, IMDDConfig
 
@@ -41,7 +44,8 @@ def port_config_classes():
                if dataclasses.is_dataclass(obj) and isinstance(obj, type)]
     classes += [WDMTxConfig, EDCConfig, MIMOEqualizerConfig, CPRConfig,
                 CoherentDSPConfig, ClockRecoveryConfig, FFWClockRecoveryConfig, LDPCConfig,
-                DFEConfig, FFEConfig, VolterraConfig, PAMTxConfig, IMDDConfig, SyncConfig]
+                DFEConfig, FFEConfig, VolterraConfig, PAMTxConfig, IMDDConfig, SyncConfig,
+                EDFASMConfig, OFDMConfig, PerturbationConfig]
     return {cls.__name__: cls for cls in classes}
 
 

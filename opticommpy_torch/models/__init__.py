@@ -1,7 +1,14 @@
-"""Physical models: devices, fiber channel, transmitter (port of
-``opticommpy_tpu/models``)."""
+"""Physical models: devices, fiber channel, transmitter, amplification,
+perturbation (port of ``opticommpy_tpu/models``)."""
 
-from opticommpy_torch.models import channels, config, devices, tx  # noqa: F401
+from opticommpy_torch.models import (  # noqa: F401
+    amplification,
+    channels,
+    config,
+    devices,
+    perturbation,
+    tx,
+)
 from opticommpy_torch.models.channels import (  # noqa: F401
     awgn,
     linear_fiber_channel,

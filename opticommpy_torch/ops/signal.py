@@ -148,6 +148,18 @@ def _interp_columns(t_out, t_in, x):
     return torch.where((t_out > t_in[-1])[:, None], x[-1:], f)
 
 
+def _interp_extrap(x, xp, fp):
+    """``np.interp(x, xp, fp)`` for increasing ``xp``, but continued linearly
+    beyond both ends through the first and the last two points (the JAX
+    package's OFDM channel estimate and EDFA noise profile); one point is
+    held everywhere."""
+    n = xp.numel()
+    if n < 2:
+        return fp[:1].expand(x.shape)
+    j = torch.clamp(torch.searchsorted(xp, x, right=True) - 1, 0, n - 2)
+    return fp[j] + (fp[j + 1] - fp[j]) / (xp[j + 1] - xp[j]) * (x - xp[j])
+
+
 def clock_sampling_interp(x, in_fs, out_fs, jitter_rms=0.0, generator=None):
     """Linear-interpolation resampling to a new clock (core.py:272).
 

@@ -13,6 +13,7 @@ import torch
 torch.set_num_threads(1)
 
 from opticommpy_tpu.comm.fec import LDPCConfig  # noqa: E402
+from opticommpy_tpu.comm.ofdm import OFDMConfig  # noqa: E402
 from opticommpy_tpu.dsp.carrier_recovery import CPRConfig  # noqa: E402
 from opticommpy_tpu.dsp.clock_recovery import (  # noqa: E402
     ClockRecoveryConfig,
@@ -27,6 +28,8 @@ from opticommpy_tpu.dsp.equalization import (  # noqa: E402
 )
 from opticommpy_tpu.dsp.synchronization import SyncConfig  # noqa: E402
 from opticommpy_tpu.models import config as jax_model_config  # noqa: E402
+from opticommpy_tpu.models.amplification import EDFASMConfig  # noqa: E402
+from opticommpy_tpu.models.perturbation import PerturbationConfig  # noqa: E402
 from opticommpy_tpu.models.tx import PAMTxConfig, WDMTxConfig  # noqa: E402
 from opticommpy_tpu.pipelines import CoherentDSPConfig, IMDDConfig  # noqa: E402
 from opticommpy_torch.convert import (  # noqa: E402
@@ -45,7 +48,8 @@ JAX_CONFIGS = sorted(
      if dataclasses.is_dataclass(obj) and isinstance(obj, type)]
     + [WDMTxConfig, EDCConfig, MIMOEqualizerConfig, CPRConfig, CoherentDSPConfig,
        ClockRecoveryConfig, FFWClockRecoveryConfig, LDPCConfig, DFEConfig, FFEConfig,
-       VolterraConfig, PAMTxConfig, IMDDConfig, SyncConfig],
+       VolterraConfig, PAMTxConfig, IMDDConfig, SyncConfig, EDFASMConfig, OFDMConfig,
+       PerturbationConfig],
     key=lambda c: c.__name__)
 
 
@@ -106,7 +110,9 @@ def test_package_imports_with_jax_blocked():
             "opticommpy_torch.kernels.gardner, opticommpy_torch.kernels.ddpll, "
             "opticommpy_torch.dsp.clock_recovery, opticommpy_torch.comm.fec, "
             "opticommpy_torch.comm.fec_qc, opticommpy_torch.kernels.ldpc, "
-            "opticommpy_torch.kernels.qc; print('ok')")
+            "opticommpy_torch.kernels.qc, opticommpy_torch.compat, "
+            "opticommpy_torch.utils.checkpoint, opticommpy_torch.utils.profiling; "
+            "print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=PORT_ROOT.parent, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -10,6 +10,9 @@ alongside (the secondary inputs: references, taps, a second field) follows
 the main input, which the last test pins.
 """
 
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,7 @@ import torch
 torch.set_num_threads(1)
 
 from opticommpy_torch import pipelines as tpipe  # noqa: E402
+from opticommpy_torch.comm import ofdm as tofdm  # noqa: E402
 from opticommpy_torch.comm import metrics as tmet  # noqa: E402
 from opticommpy_torch.comm import modulation as tmod  # noqa: E402
 from opticommpy_torch.dsp import carrier_recovery as tcr  # noqa: E402
@@ -26,12 +30,15 @@ from opticommpy_torch.kernels import bps as tbps  # noqa: E402
 from opticommpy_torch.kernels import ddpll as tddpll  # noqa: E402
 from opticommpy_torch.kernels import mimo_eq as tmimo  # noqa: E402
 from opticommpy_torch.kernels import rls as trls  # noqa: E402
+from opticommpy_torch.models import amplification as tamp  # noqa: E402
 from opticommpy_torch.models import channels as tch  # noqa: E402
+from opticommpy_torch.models import perturbation as tpert  # noqa: E402
 from opticommpy_torch.models import devices as tdev  # noqa: E402
 from opticommpy_torch.models.config import LinearFiberConfig, SSFMConfig  # noqa: E402
 from opticommpy_torch.ops import filtering as tfilt  # noqa: E402
 from opticommpy_torch.ops import signal as tsig  # noqa: E402
 from opticommpy_torch.ops import whitening as twh  # noqa: E402
+from opticommpy_torch.utils import checkpoint as tck  # noqa: E402
 from opticommpy_torch.utils import units as tunits  # noqa: E402
 
 from _torch_parity import mixed_polmux, norm_qam  # noqa: E402
@@ -51,6 +58,15 @@ _CHAIN = tpipe.CoherentDSPConfig(SpS_in=8, nFilterTaps=64, L=10.0, nTrain=128,
                                  cpr_window=9, cpr_phases=16)
 _EQ = teq.MIMOEqualizerConfig(nTaps=7, M=16, mu=(1e-3,))
 _SSFM = SSFMConfig(Ltotal=1, Lspan=1, hz=0.5, Fs=_FS)
+_EDFA = tamp.EDFASMConfig(type="none", lngth=6.0, forPumpW=(30e-3,), bckPumpW=(0.0,),
+                          noiseBand=50e9)
+_OFDM = tofdm.OFDMConfig(Nfft=64, G=8, SpS=1, pilotCarriers=(0, 21, 42, 63))
+_PERT = tpert.calc_pert_coeff_matrix(tpert.PerturbationConfig(matrixOrder=4))
+
+
+def _saved_state():
+    """A checkpoint file of NumPy leaves (saving needs no device)."""
+    return tck.save_state(os.path.join(tempfile.mkdtemp(), "state.npz"), [_SIG, _TAPS])
 
 # each entry point, called on NumPy input; the function returns tensors
 NUMPY_INPUT_CALLS = {
@@ -98,6 +114,17 @@ NUMPY_INPUT_CALLS = {
     "pdm_coherent_receiver": lambda: tdev.pdm_coherent_receiver(
         _SIG, np.ones(1024, np.complex64), tdev.PDMFrontendConfig(Fs=_FS)),
     "edfa": lambda: tdev.edfa(_SIG, tdev.EDFAConfig(Fs=_FS)),
+    "edfa_sm": lambda: tamp.edfa_sm(1e-2 * _SIG, 400e9, 193.1e12, _EDFA),
+    "calc_nlin_perturbation": lambda: tpert.calc_nlin_perturbation(*_PERT[1:], _SYM[:, 0],
+                                                                   _SYM[:, 1]),
+    "perturbation_nlin": lambda: tpert.perturbation_nlin(
+        _SYM, tpert.PerturbationConfig(matrixOrder=4)),
+    # OFDM
+    "modulate_ofdm": lambda: tofdm.modulate_ofdm(_SYM[:, 0].reshape(-1)[:480], _OFDM),
+    "demodulate_ofdm": lambda: tofdm.demodulate_ofdm(_SIG[:, 0][:360], _OFDM,
+                                                     return_channel=True),
+    # checkpoints
+    "load_state": lambda: tck.load_state(_saved_state()),
     # filtering and signal conditioning
     "fir_filter": lambda: tfilt.fir_filter(np.ones(5, np.float32), _SIG),
     "overlap_save": lambda: tfilt.overlap_save(_SIG, np.ones(5, np.float32), nfft=64),
