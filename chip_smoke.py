@@ -1,6 +1,6 @@
 """Drive the PyTorch port's coherent WDM, IM-DD, digital-backpropagation,
-single-polarization, Giles-EDFA and perturbation-NLC paths once on one
-NVIDIA GPU.
+single-polarization, Giles-EDFA and perturbation-NLC paths and its
+parallel routes once on one NVIDIA GPU.
 
 Phases:
 1. device: needs CUDA (exits non-zero otherwise); prints the card's
@@ -248,10 +248,28 @@ Phases:
    40 km of ``linear_fiber_channel``), each on CUDA against the same call on
    CPU tensors, with warm times; a ``save_state`` / ``load_state`` round
    trip on the card; one ``StageTimer`` stage.
-19. the time of every phase; then the kernels JSON line (K1-K14, each with
+19. phase O, ``opticommpy_torch.parallel`` at world size 1 on NCCL (one
+   card; world sizes 2 and 4 run on gloo in the CPU tests): NCCL start-up
+   and an all-reduce; the main path's Tx field through ``manakov_ssf_dp``
+   on a (1, 1) mesh with EDFAs and the main path's generator seed, bit for
+   bit against ``manakov_ssf``; ``manakov_ssf_pp`` (one stage, M = 1) and
+   ``manakov_ssf_sp`` (default halo) with ideal gain, within PP_REL and
+   SP_REL of ``manakov_ssf`` (sp propagates a longer block with a cyclic
+   halo, so it is held to its halo bound, not bit for bit), and with EDFAs,
+   output power 0.8-1.6 x the input; ``sharded_edc`` (L 250 km at the
+   field's rate) and the RRC matched filter by ``sharded_fir`` on the dp
+   output against ``edc`` + ``fir_filter`` (EDC_STEP_REL on the interior);
+   path E's LLRs through the serving decoder (bf16 NMSA-20, early exit),
+   path C's 11 training signals through ``mimo_adapt_equalizer_batch`` and
+   path B's 11 offset signals through ``ffw_clock_recovery``, each split
+   over the ``data`` dim, bit for bit with the unsharded call and the same
+   launches (K11 1, K3 3); ``dryrun_multichip(1)``; every stage's
+   host-clock time beside the card's name and power limit.
+20. the time of every phase; then the kernels JSON line (K1-K14, each with
    its bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s;
-   K1 and K2 also with their path I, L and M launches, K1 with phase K's),
-   and last the ``{"ok": true, "device": ...}`` line.
+   K1 and K2 also with their path I, L and M launches, K1 with phase K's,
+   K3 and K11 with phase O's), and last the ``{"ok": true, "device": ...}``
+   line.
 
 Usage: python3 chip_smoke.py
 """
@@ -981,6 +999,7 @@ def run_main_path(dev, n_bits=2**18, n_channels=11, n_train=12000):
     cfg_ch = SSFMConfig(Ltotal=250, Lspan=50, hz=0.5, alpha=0.2, D=16, gamma=1.3,
                         Fs=fs, amp="edfa", NF=4.5, nlprMethod=False, trapIters=1,
                         fusedLinear=True)
+    gen_state_ssfm = gen.get_state()
     sig_ch, times["ssfm_s"] = _wall(lambda: manakov_ssf(sig_tx, cfg_ch, gen))
     lo = basic_laser_model(LaserConfig(P=10.0, lw=100e3, Ns=sig_ch.shape[0], Fs=fs,
                                        freqShift=150e6, RIN_var=0.0), gen)
@@ -998,7 +1017,7 @@ def run_main_path(dev, n_bits=2**18, n_channels=11, n_train=12000):
     gmi, _ = monte_carlo_gmi(yy, dd, 16, "qam")
     evm = calc_evm(yy, 16, "qam", symb_tx=dd)
     out = dict(sig_tx=sig_tx, symb_tx=symb_tx, sig_ch=sig_ch, sig_rx=sig_rx, d_ref=d_ref, y=y,
-               phases=phases, cfg=cfg, cfg_ch=cfg_ch, gen=gen,
+               phases=phases, cfg=cfg, cfg_ch=cfg_ch, gen=gen, gen_state_ssfm=gen_state_ssfm,
                ber=ber.cpu().numpy(), gmi=gmi.cpu().numpy(), evm=evm.cpu().numpy(),
                snr=snr.cpu().numpy())
     return out, times
@@ -1441,8 +1460,8 @@ def run_cr_path_b(dev, res, sig_b, ref_b, n_train=12000):
     with mock.patch.object(pipelines, "ffw_clock_recovery",
                            wraps=pipelines.ffw_clock_recovery) as ffw:
         coherent_dsp_chain_batch(sig_o, ref_o, cfg)
-    ppm_est = [float(ffw_clock_recovery(*c.args, return_est=True)[1][0])
-               for c in ffw.call_args_list]
+    ffw_in = [c.args for c in ffw.call_args_list]
+    ppm_est = [float(ffw_clock_recovery(*args, return_est=True)[1][0]) for args in ffw_in]
     print("path B clock estimates (ppm): "
           + ", ".join(f"ch {k} {PPM_B[k]:.0f} -> {p:.4f}" for k, p in enumerate(ppm_est)))
     # the same chain on the same input on the CPU (the kernels' plain
@@ -1464,7 +1483,8 @@ def run_cr_path_b(dev, res, sig_b, ref_b, n_train=12000):
                 failures.append(f"B ffw ch {k} pol {p}: BER {ber[p]:.3e} GMI {gmi[p]:.4f} vs "
                                 f"CPU {c_ber[p]:.3e} {c_gmi[p]:.4f}")
     _median_check("B ffw", rows, failures)
-    return dict(counts=counts, warm_s=warm_s, failures=failures, ppm_est=ppm_est)
+    return dict(counts=counts, warm_s=warm_s, failures=failures, ppm_est=ppm_est,
+                ffw_in=ffw_in)
 
 
 def serve_inputs(res, n_channels=11):
@@ -1576,7 +1596,8 @@ def run_serve_path_c(dev, res, n_train=12000, n_channels=11):
     _median_check("C ddpll", [_scores(pll[k], ref_b[k], disc) for k in range(n_channels)],
                   failures)
     return dict(train_counts=train_counts, serve_counts=serve_counts, pll_counts=pll_counts,
-                serve_s=serve_s, train_s=train_s, pll_s=pll_s, failures=failures)
+                serve_s=serve_s, train_s=train_s, pll_s=pll_s, failures=failures,
+                train_in=(front_b, ref_b, eq_cfg))
 
 
 def _msize(mdt):
@@ -3740,6 +3761,157 @@ def phase_slice6_n(dev, n_sym=2**16, seed=13):
     return ms
 
 
+PP_REL = 1e-6  # phase O: manakov_ssf_pp on one stage against manakov_ssf, relative
+SP_REL = 5e-4  # phase O: manakov_ssf_sp, default halo, against manakov_ssf (tests/test_parallel.py:176)
+EDC_STEP_REL = 5e-2  # phase O: sharded_edc + matched filter against edc + fir_filter, interior
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_parallel_o(dev, sig_tx, cfg_ch, gen_state, llr, train_in, ffw_in, edc_cfg, pulse,
+                     sig_ch=None):
+    """Phase O: ``opticommpy_torch.parallel`` at world size 1 on NCCL (one
+    card: every collective meets a group of one), each route against its
+    unsharded call on the inputs the run already has: the main path's Tx
+    field through ``manakov_ssf_dp`` (EDFAs, from the generator state
+    ``gen_state`` the main path's SSFM started from: bit for bit with
+    ``manakov_ssf``, and whether it is the main path's field ``sig_ch``
+    printed), ``manakov_ssf_pp`` (one stage, M = 1) and ``manakov_ssf_sp`` (default
+    halo) with ideal gain (PP_REL, SP_REL) and with EDFAs (output power
+    0.8-1.6 x the input); ``sharded_edc`` (``edc_cfg``) and the matched
+    filter ``pulse`` by ``sharded_fir`` on the dp output (EDC_STEP_REL on
+    the interior); the serving decoder (DVB-S2 R4/5, bf16 NMSA-20, early
+    exit) on ``llr``, the trainer ``train_in`` = (signals, references,
+    config) and feedforward clock recovery on ``ffw_in`` (the per-signal
+    (signal, config) arguments) split over the ``data`` dim, each bit for
+    bit with the unsharded call's kernel launches; then
+    ``dryrun_multichip(1)``. Prints each stage's host-clock time and the
+    NCCL start-up beside the card's name and power limit; returns them with
+    the launches counted on the split routes."""
+    from dataclasses import replace
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from opticommpy_torch.comm import fec_qc
+    from opticommpy_torch.dsp import edc, mimo_adapt_equalizer_batch
+    from opticommpy_torch.dsp.clock_recovery import ffw_clock_recovery
+    from opticommpy_torch.models import manakov_ssf
+    from opticommpy_torch.ops import fir_filter
+    from opticommpy_torch.parallel import (P, default_sp_halo, init_distributed, make_mesh,
+                                           manakov_ssf_dp, manakov_ssf_pp, manakov_ssf_sp,
+                                           sharded_edc, sharded_fir)
+    from opticommpy_torch.parallel.dryrun import dryrun_multichip
+    from opticommpy_torch.parallel.sharded import _data_parallel
+
+    smi = _smi()
+    secs = {}
+    t0 = time.perf_counter()
+    rank_world = init_distributed(device=dev)
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    dist.all_reduce(x)
+    total = float(x.sum())
+    secs["NCCL start-up and first all-reduce"] = time.perf_counter() - t0
+    print(f"phase O: group {rank_world} on {dist.get_backend()}, all-reduce sum {total}")
+    _check(rank_world == (0, 1) and dist.get_backend() == "nccl" and total == 28.0,
+           f"phase O: group {rank_world} on {dist.get_backend()}, sum {total}")
+    mesh = make_mesh(1, 1, device_type=dev.type)
+    stages = DeviceMesh(dev.type, torch.arange(1), mesh_dim_names=("stage",))
+    _check(mesh.device_type == "cuda", f"phase O: mesh on {mesh.device_type}")
+
+    def gen():
+        g = torch.Generator(device=dev)
+        g.set_state(gen_state)
+        return g
+
+    ref, _ = _wall(lambda: manakov_ssf(sig_tx, cfg_ch, gen()))
+    out_dp, secs["dp SSFM (EDFA)"] = _wall(lambda: manakov_ssf_dp(sig_tx, cfg_ch, gen(), mesh))
+    same = bool(torch.equal(out_dp, ref))
+    print(f"phase O dp SSFM {tuple(sig_tx.shape)}, EDFA: bit-identical to manakov_ssf {same}")
+    if sig_ch is not None:
+        print(f"phase O dp SSFM bit-identical to the main path's field: "
+              f"{bool(torch.equal(out_dp, sig_ch))}")
+    _check(same and out_dp.is_cuda, "phase O: manakov_ssf_dp differs from manakov_ssf")
+
+    cfg_i = replace(cfg_ch, amp="ideal")
+    ref_i, _ = _wall(lambda: manakov_ssf(sig_tx, cfg_i))
+    out_pp, secs["pp SSFM (1 stage, M 1)"] = _wall(
+        lambda: manakov_ssf_pp(sig_tx, cfg_i, None, stages, n_microbatches=1))
+    err_pp = _rel(out_pp, ref_i)
+    halo = default_sp_halo(cfg_i)
+    out_sp, secs["sp SSFM (default halo)"] = _wall(lambda: manakov_ssf_sp(sig_tx, cfg_i,
+                                                                          mesh=mesh))
+    err_sp = _rel(out_sp, ref_i)
+    print(f"phase O pp vs manakov_ssf (ideal gain): relative error {err_pp:.3e} (< {PP_REL}), "
+          f"bit-identical {bool(torch.equal(out_pp, ref_i))}; sp (halo {halo}): {err_sp:.3e} "
+          f"(< {SP_REL})")
+    _check(err_pp <= PP_REL, f"phase O: pp off by {err_pp}")
+    _check(err_sp < SP_REL, f"phase O: sp off by {err_sp}")
+    del ref_i, out_pp, out_sp
+    p_in = float(torch.mean(torch.abs(sig_tx) ** 2))
+    for name, run in (("pp", lambda: manakov_ssf_pp(sig_tx, cfg_ch, gen(), stages,
+                                                     n_microbatches=1)),
+                      ("sp", lambda: manakov_ssf_sp(sig_tx, cfg_ch, gen(), mesh=mesh))):
+        out, secs[f"{name} SSFM (EDFA)"] = _wall(run)
+        ratio = float(torch.mean(torch.abs(out) ** 2)) / p_in
+        print(f"phase O {name} SSFM with EDFAs: output / input power {ratio:.4f} (0.8-1.6)")
+        _check(0.8 < ratio < 1.6 and bool(torch.isfinite(out).all()),
+               f"phase O: {name} EDFA power ratio {ratio}")
+        del out
+
+    y_s, secs["sharded_edc + matched filter"] = _wall(lambda: sharded_fir(
+        sharded_edc(out_dp, edc_cfg, mesh, mode_axis="data"), pulse, mesh, mode_axis="data"))
+    y_r = fir_filter(pulse, edc(out_dp, edc_cfg))
+    err_rx = _rel(y_s[600:-600], y_r[600:-600])
+    print(f"phase O sharded_edc + matched filter vs edc + fir_filter: {err_rx:.3e} on "
+          f"the interior (< {EDC_STEP_REL})")
+    _check(err_rx < EDC_STEP_REL, f"phase O: receive step off by {err_rx}")
+    del y_s, y_r, out_dp, ref
+
+    split = {}
+    dec = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", "bf16", True)
+    train_sig, train_ref, eq_cfg = train_in
+    ffw_sig = torch.stack([args[0] for args in ffw_in])
+    ffw_cfg = ffw_in[0][1]
+
+    def train(s, r):
+        return mimo_adapt_equalizer_batch(s, eq_cfg, symb_ref=r, return_results=True)
+
+    def ffw(s):
+        return torch.stack([ffw_clock_recovery(x, ffw_cfg) for x in s])
+
+    routes = (
+        ("dp decode", dec, (llr,), (P(None, "data"),), (P(None, "data"), P("data"), P("data"))),
+        ("dp trainer", train, (train_sig, train_ref), (P("data"), P("data")),
+         (P("data"), P("data"), P("data"))),
+        ("dp ffw clock recovery", ffw, (ffw_sig,), (P("data"),), P("data")))
+    for name, fn, args, in_specs, out_specs in routes:
+        _reset_counts()
+        want, _ = _wall(lambda: fn(*args))
+        c_ref = _counts()
+        _reset_counts()
+        got, secs[name] = _wall(lambda: _data_parallel(fn, mesh, in_specs, out_specs)(*args))
+        split[name] = _counts()
+        want, got = (want, got) if isinstance(want, tuple) else ((want,), (got,))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        print(f"phase O {name}: bit-identical to the unsharded call {same}; launches "
+              f"{_nonzero(split[name])} (unsharded {_nonzero(c_ref)})")
+        _check(same, f"phase O: {name} differs from the unsharded call")
+        _check(split[name] == c_ref, f"phase O: {name} launched {split[name]}, unsharded {c_ref}")
+    _check(split["dp decode"] == _expect(qc_mega=1), f"phase O dp decode: {split['dp decode']}")
+    _check(split["dp trainer"] == _expect(mimo_eq_batch=3),
+           f"phase O dp trainer: {split['dp trainer']}")
+
+    _, secs["dryrun_multichip(1)"] = _wall(lambda: dryrun_multichip(1, device=dev))
+    dist.destroy_process_group()
+    for name, sec in secs.items():
+        print(f"phase O {name}: {sec:.4f} s (host clock; {smi})")
+    return dict(secs=secs, qc_mega=split["dp decode"]["qc_mega"],
+                mimo_eq_batch=split["dp trainer"]["mimo_eq_batch"])
+
+
 def main():
     dev = phase_device()
     phase_build()
@@ -3885,6 +4057,16 @@ def main():
     t0 = time.perf_counter()
     phase_slice6_n(dev)
     phase_s["phase N"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from opticommpy_torch.dsp import EDCConfig
+    from opticommpy_torch.ops import pulse_shape
+
+    path_o = phase_parallel_o(
+        dev, res["sig_tx"], res["cfg_ch"], res["gen_state_ssfm"], _path_e_llrs(dev)[2],
+        path_c.pop("train_in"),
+        path_b.pop("ffw_in"), EDCConfig(L=250, D=16, Fs=res["cfg_ch"].Fs, Rs=32e9),
+        pulse_shape("rrc", 16, 1024, 0.01).astype(np.float32), sig_ch=res["sig_ch"])
+    phase_s["phase O"] = time.perf_counter() - t0
     for name, sec in phase_s.items():
         print(f"phase time: {name} {sec:.1f} s")
     peak_gib = max(peak_gib, torch.cuda.max_memory_allocated() / 2**30)
@@ -3908,7 +4090,7 @@ def main():
         dict(name="mimo_eq_batch", route="cuda", source="opticommpy_torch/csrc/mimo_eq.cu",
              replaces="opticommpy_tpu/kernels/mimo_pallas.py:467",
              launches=wdm["da-rde/dd-lms"]["counts"]["mimo_eq_batch"],
-             **report["mimo_eq_batch"]),
+             phase_o_launches=path_o["mimo_eq_batch"], **report["mimo_eq_batch"]),
         dict(name="rls_argmin", route="cuda", source="opticommpy_torch/csrc/rls.cu",
              replaces="opticommpy_tpu/kernels/rls_pallas.py:183",
              launches=psk_counts["rls"], **report["rls_argmin"]),
@@ -3932,7 +4114,8 @@ def main():
              launches=path_e["counts"]["qc_var"], **report["qc_var"]),
         dict(name="qc_mega", route="cuda", source="opticommpy_torch/csrc/qc_mega.cu",
              replaces="opticommpy_tpu/kernels/qc_mega.py:443",
-             launches=path_d["counts"]["qc_mega"], **report["qc_mega"],
+             launches=path_d["counts"]["qc_mega"], phase_o_launches=path_o["qc_mega"],
+             **report["qc_mega"],
              bound_share=report["qc_mega"]["bound_ms"] / report["qc_mega"]["ms"]),
         dict(name="lift_iter", route="cuda", source="opticommpy_torch/csrc/lift.cu",
              replaces="opticommpy_tpu/kernels/lift_pallas.py:182",

@@ -10,4 +10,4 @@ The JAX package stays the reference.
 
 __version__ = "0.1.0"
 
-from opticommpy_torch import comm, dsp, models, ops, utils  # noqa: F401
+from opticommpy_torch import comm, dsp, models, ops, parallel, utils  # noqa: F401

@@ -39,3 +39,15 @@ from opticommpy_torch.dsp.synchronization import (  # noqa: F401
     SyncConfig,
     sync_data_sequences,
 )
+
+# the Hopper kernels of the serial recurrences (the JAX package's Pallas
+# entry points, ``*_pallas``, under the port's ``*_kernel`` names)
+from opticommpy_torch.kernels.bps import bps_kernel  # noqa: F401,E402
+from opticommpy_torch.kernels.dfe import dfe_kernel, ffe_kernel  # noqa: F401,E402
+from opticommpy_torch.kernels.ddpll import ddpll_kernel  # noqa: F401,E402
+from opticommpy_torch.kernels.gardner import gardner_kernel  # noqa: F401,E402
+from opticommpy_torch.kernels.mimo_eq import (  # noqa: F401,E402
+    mimo_eq_kernel,
+    mimo_eq_kernel_batch,
+    mimo_lms_kernel,
+)

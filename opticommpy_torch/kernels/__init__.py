@@ -28,3 +28,9 @@ A wrapper runs the plain version for a CPU tensor, and the kernel, or
 raises, for a CUDA tensor. The kernels are built with nvcc on first use
 (:mod:`._build`).
 """
+
+from opticommpy_torch.kernels.bps import bps_kernel  # noqa: F401,E402
+from opticommpy_torch.kernels.ddpll import ddpll_kernel  # noqa: F401,E402
+from opticommpy_torch.kernels.gardner import gardner_kernel  # noqa: F401,E402
+from opticommpy_torch.kernels.mimo_eq import mimo_eq_kernel, mimo_lms_kernel  # noqa: F401,E402
+from opticommpy_torch.kernels.rls import mimo_rls_kernel  # noqa: F401,E402

@@ -29,7 +29,7 @@ import torch
 
 from opticommpy_torch.kernels import _build
 
-__all__ = ["gardner_records", "gardner_plain", "max_iters", "launches"]
+__all__ = ["gardner_kernel", "gardner_records", "gardner_plain", "max_iters", "launches"]
 
 launches = 0  # kernel launches made by gardner_records on CUDA tensors
 
@@ -145,3 +145,13 @@ def gardner_records(sig, kp, ki, is_nyquist, n_out):
     if sig.device.type == "cpu":
         return gardner_plain(sig, kp, ki, is_nyquist, n_out)
     raise ValueError(f"gardner: unsupported device {sig.device}")
+
+
+def gardner_kernel(sig, config=None, return_timing=False, static_out=False):
+    """Gardner clock recovery on K6 (port of ``gardner_pallas``): a drop-in
+    for :func:`opticommpy_torch.dsp.clock_recovery.gardner_clock_recovery`
+    with ``backend='pallas'``."""
+    from opticommpy_torch.dsp.clock_recovery import ClockRecoveryConfig, gardner_clock_recovery
+
+    return gardner_clock_recovery(sig, config if config is not None else ClockRecoveryConfig(),
+                                  return_timing, "pallas", static_out)

@@ -35,7 +35,7 @@ from opticommpy_torch.kernels._build import device_tables
 from opticommpy_torch.kernels.bps import _quantize, _square_qam_levels
 from opticommpy_torch.utils.rng import as_device_tensor
 
-__all__ = ["mimo_eq_kernel", "mimo_eq_kernel_batch", "mimo_eq_stage",
+__all__ = ["mimo_eq_kernel", "mimo_eq_kernel_batch", "mimo_lms_kernel", "mimo_eq_stage",
            "mimo_eq_stage_batch", "mimo_eq_stage_plain",
            "mimo_eq_stage_batch_plain", "stage_aux",
            "chunk_symbols", "launches", "batch_launches"]
@@ -313,6 +313,12 @@ def mimo_eq_kernel(sig, symb_ref, const, alg="lms", n_taps=15, sps=2,
                          stage_aux(alg, const), alg, mu, n_train, sps, n_taps,
                          0, ref.shape[1])
     return y, _taps(h, n_taps)
+
+
+def mimo_lms_kernel(sig, symb_ref, const, n_taps=15, sps=2, mu=2e-3, n_train=10000, H0=None):
+    """The 2x2 LMS equalizer, data-aided then decision-directed (port of
+    ``mimo_lms_pallas``): :func:`mimo_eq_kernel` with ``alg='lms'``."""
+    return mimo_eq_kernel(sig, symb_ref, const, "lms", n_taps, sps, mu, n_train, H0)
 
 
 def mimo_eq_kernel_batch(sig, symb_ref, const, alg="lms", n_taps=15, sps=2,

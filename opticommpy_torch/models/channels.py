@@ -24,7 +24,7 @@ import torch
 
 from opticommpy_torch.models.config import (AWGNConfig, EDFAConfig, LinearFiberConfig,
                                             SSFMConfig)
-from opticommpy_torch.models.devices import edfa
+from opticommpy_torch.models.devices import _edfa_gain, edfa
 from opticommpy_torch.ops.noise import gaussian_complex_noise, gaussian_noise
 from opticommpy_torch.ops.signal import fftfreq, sig_pow
 from opticommpy_torch.utils.rng import as_device_tensor, ensure_generator
@@ -84,10 +84,18 @@ def nlin_phase_rot(ex, ey, pch, gamma_):
     return (8 / 9) * gamma_ * (pch + torch.abs(ex) ** 2 + torch.abs(ey) ** 2) / 2
 
 
-def convergence_condition(e_fd, e_conv):
-    """Normalized RMS change between trapezoidal iterations (channels.py:496)."""
+def convergence_condition(e_fd, e_conv, group=None):
+    """Normalized RMS change between trapezoidal iterations (channels.py:496).
+
+    With a process ``group`` (the data-parallel SSFM), the two sums run
+    over the whole batch the group holds: one all-reduce of both.
+    """
     num = torch.sum(torch.abs(e_fd - e_conv) ** 2)
     den = torch.sum(torch.abs(e_conv) ** 2)
+    if group is not None:
+        sums = torch.stack([num, den])
+        torch.distributed.all_reduce(sums, group=group)
+        num, den = sums[0], sums[1]
     return torch.sqrt(num) / torch.sqrt(den)
 
 
@@ -168,12 +176,13 @@ def ssfm(e_in, config: SSFMConfig, generator=None):
     return out[:, 0] if squeeze else out
 
 
-def _manakov_step(e, pch, lin_op, hz_, cfg: SSFMConfig, nl_sign=1.0):
+def _manakov_step(e, pch, lin_op, hz_, cfg: SSFMConfig, nl_sign=1.0, group=None):
     """One symmetric split step with the trapezoidal nonlinear correction.
 
     ``pch`` is the start-of-step power (trapezoid anchor); ``nl_sign`` the
     sign of the nonlinear rotation (``nl_sign * 1j`` is exactly ``1j`` for
-    the forward channel, so its rounding is the same as without it).
+    the forward channel, so its rounding is the same as without it);
+    ``group`` as in :func:`_manakov_span`.
     """
     e_hd = _ifft(_fft(e) * lin_op)
     j_sign = nl_sign * 1j
@@ -191,16 +200,19 @@ def _manakov_step(e, pch, lin_op, hz_, cfg: SSFMConfig, nl_sign=1.0):
     lim = math.inf
     while n_it < cfg.maxIter and lim >= cfg.tol:
         e_fd = one_iter(e_conv)
-        lim = float(convergence_condition(e_fd, e_conv))
+        lim = float(convergence_condition(e_fd, e_conv, group))
         e_conv = e_fd
         n_it += 1
     return e_fd
 
 
-def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0):
+def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0, group=None):
     """Propagate the (2, B, N) field through one span; ``nl_sign=-1``
     inverts the nonlinear rotation (digital backpropagation, reference
-    equalization.py:976)."""
+    equalization.py:976). With a process ``group``, ``e`` is the group
+    member's share of a batch split over the group: the adaptive step and
+    the trapezoid's convergence test then read the whole batch (a MAX and a
+    SUM all-reduce), so every member steps as the unsplit batch would."""
     j_sign = nl_sign * 1j
     if not cfg.nlprMethod:
         n_full = int(np.floor(span_len / cfg.hz))
@@ -237,7 +249,7 @@ def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0):
 
         def step_with(e, hz_, lin_op):
             pch = torch.sum(torch.abs(e) ** 2, dim=0)
-            return _manakov_step(e, pch, lin_op, hz_, cfg, nl_sign)
+            return _manakov_step(e, pch, lin_op, hz_, cfg, nl_sign, group)
 
         n_uni = int(np.sum(sizes == cfg.hz))
         lin_half = torch.exp(lin_arg * (cfg.hz / 2))
@@ -255,10 +267,13 @@ def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0):
     while bool(z < span):
         pch = torch.sum(torch.abs(e) ** 2, dim=0)
         phi_rot = nlin_phase_rot(e[0], e[1], pch, cfg.gamma)
-        hz_cand = cfg.maxNlinPhaseRot / torch.max(phi_rot)
+        phi_max = torch.max(phi_rot)
+        if group is not None:
+            torch.distributed.all_reduce(phi_max, torch.distributed.ReduceOp.MAX, group=group)
+        hz_cand = cfg.maxNlinPhaseRot / phi_max
         hz_ = torch.minimum(hz_cand, span - z)
         lin_op = torch.exp(lin_arg * (hz_ / 2))
-        e = _manakov_step(e, pch, lin_op, hz_, cfg, nl_sign)
+        e = _manakov_step(e, pch, lin_op, hz_, cfg, nl_sign, group)
         z = z + hz_
     return e
 
@@ -287,37 +302,71 @@ def manakov_ssf(e_in, config: SSFMConfig, generator=None, save_all_spans=False):
     -------
     (N, 2*k) output field, or (output, per_span_fields) if save_all_spans.
     """
-    if config.Fs is None:
-        raise ValueError("Simulation sampling frequency (Fs) not provided.")
-    cdtype = _solver_cdtype(config)
-    real_dtype = torch.float64 if cdtype == torch.complex128 else torch.float32
-    e_in = as_device_tensor(e_in).to(cdtype)
-    n = e_in.shape[0]
-    e = torch.stack([e_in[:, 0::2].T, e_in[:, 1::2].T]).contiguous()
-
-    alpha, beta2 = fiber_coefficients(config.alpha, config.D, config.Fc)
-    n_spans = int(np.floor(config.Ltotal / config.Lspan))
-    w = (2 * np.pi * config.Fs) * fftfreq(n, 1.0, real_dtype, e.device)
-    lin_arg = torch.complex(torch.full_like(w, -(alpha / 2)),
-                            (beta2 / 2) * (w * w)).to(cdtype)
-
-    amp_cfg = EDFAConfig(G=config.alpha * config.Lspan, NF=config.NF,
-                         Fc=config.Fc, Fs=config.Fs)
-    if config.amp == "edfa":
-        generator = ensure_generator(generator, e.device)
+    e = _to_pol_stacked(e_in, config)
     span_fields = []
-    for _ in range(n_spans):
-        e = _manakov_span(e, lin_arg, config.Lspan, config)
-        if config.amp == "edfa":
-            e = edfa(e, amp_cfg, generator)
-        elif config.amp == "ideal":
-            e = e * float(np.exp(alpha / 2 * config.Lspan))
+    for e in _manakov_spans(e, config, generator):
         if save_all_spans:
             span_fields.append(_to_columns(e))
     out = _to_columns(e)
     if save_all_spans:
         return out, torch.stack(span_fields)
     return out
+
+
+def _to_pol_stacked(e_in, config: SSFMConfig):
+    """(N, 2*k) interleaved columns -> the solver's (2, k, N) field, after
+    the checks every Manakov entry point makes."""
+    if config.Fs is None:
+        raise ValueError("Simulation sampling frequency (Fs) not provided.")
+    cdtype = _solver_cdtype(config)
+    e_in = as_device_tensor(e_in).to(cdtype)
+    return torch.stack([e_in[:, 0::2].T, e_in[:, 1::2].T]).contiguous()
+
+
+def _lin_arg(n, config: SSFMConfig, cdtype, device):
+    """The linear operator's exponent ``-alpha/2 + 1j*beta2/2*w^2`` on the
+    ``n``-point grid ``w = 2*pi*Fs*fftfreq(n)``."""
+    real_dtype = torch.float64 if cdtype == torch.complex128 else torch.float32
+    alpha, beta2 = fiber_coefficients(config.alpha, config.D, config.Fc)
+    w = (2 * np.pi * config.Fs) * fftfreq(n, 1.0, real_dtype, device)
+    return torch.complex(torch.full_like(w, -(alpha / 2)), (beta2 / 2) * (w * w)).to(cdtype)
+
+
+def _amplify(e, config: SSFMConfig, generator, batch=None):
+    """The span's amplifier on the (2, B, N) field: ``config.amp`` 'edfa'
+    (gain ``alpha*Lspan`` dB, ASE from ``generator``), 'ideal' or none.
+
+    ``batch=(b_total, b0)`` says ``e`` holds signals ``b0 .. b0+B`` of a
+    batch of ``b_total``: the EDFA then draws the whole batch's noise, as
+    the unsplit call does, and adds its own signals' share.
+    """
+    if config.amp == "edfa":
+        amp_cfg = EDFAConfig(G=config.alpha * config.Lspan, NF=config.NF,
+                             Fc=config.Fc, Fs=config.Fs)
+        if batch is None:
+            return edfa(e, amp_cfg, generator)
+        b_total, b0 = batch
+        gain, p_noise = _edfa_gain(amp_cfg)
+        noise = gaussian_complex_noise(generator, (2, b_total) + tuple(e.shape[2:]), p_noise)
+        return e * gain + noise[:, b0:b0 + e.shape[1]]
+    if config.amp == "ideal":
+        alpha, _ = fiber_coefficients(config.alpha, config.D, config.Fc)
+        return e * float(np.exp(alpha / 2 * config.Lspan))
+    return e
+
+
+def _manakov_spans(e, config: SSFMConfig, generator, group=None, batch=None):
+    """Yield the (2, B, N) field after each span of the link (the span, then
+    its amplifier); ``group`` as in :func:`_manakov_span`, ``batch`` as in
+    :func:`_amplify`."""
+    n_spans = int(np.floor(config.Ltotal / config.Lspan))
+    lin_arg = _lin_arg(e.shape[-1], config, e.dtype, e.device)
+    if config.amp == "edfa":
+        generator = ensure_generator(generator, e.device)
+    for _ in range(n_spans):
+        e = _manakov_span(e, lin_arg, config.Lspan, config, group=group)
+        e = _amplify(e, config, generator, batch)
+        yield e
 
 
 def awgn(sig, generator, config: AWGNConfig = AWGNConfig(), device=None):

@@ -226,20 +226,24 @@ def edfa(e_in, config: EDFAConfig = None, generator=None):
     """
     if config is None:
         config = EDFAConfig()
+    gain, p_noise = _edfa_gain(config)
+    e_in = as_device_tensor(e_in)
+    generator = ensure_generator(generator, e_in.device)
+    return e_in * gain + gaussian_complex_noise(generator, e_in.shape, p_noise)
+
+
+def _edfa_gain(config: EDFAConfig):
+    """(field gain ``sqrt(G)``, ASE noise power over ``Fs``) of :func:`edfa`."""
     if config.Fs is None:
         raise ValueError("Simulation sampling frequency (Fs) not provided.")
     if config.G <= 0:
         raise ValueError("EDFA gain should be a positive scalar")
     if config.NF < 3:
         raise ValueError("The minimal EDFA noise figure is 3 dB")
-    e_in = as_device_tensor(e_in)
     nf_lin = 10 ** (config.NF / 10)
     g_lin = 10 ** (config.G / 10)
     nsp = (g_lin * nf_lin - 1) / (2 * (g_lin - 1))
-    p_noise = (g_lin - 1) * nsp * sconst.h * config.Fc * config.Fs
-    generator = ensure_generator(generator, e_in.device)
-    noise = gaussian_complex_noise(generator, e_in.shape, p_noise)
-    return e_in * math.sqrt(g_lin) + noise
+    return math.sqrt(g_lin), (g_lin - 1) * nsp * sconst.h * config.Fc * config.Fs
 
 
 def basic_laser_model(config: LaserConfig = None, generator=None, device=None):

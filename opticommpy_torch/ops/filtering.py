@@ -48,16 +48,21 @@ def fir_filter(h, x):
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
-    is_complex = x.is_complex() or h.is_complex()
+    y = _fft_conv_same(h, x, x.is_complex() or h.is_complex())
+    return y[:, 0] if squeeze else y
+
+
+def _fft_conv_same(h, x, is_complex):
+    """Linear convolution of (N, modes) ``x`` with (K,) ``h`` by one FFT of
+    next-power-of-two length, 'same' output (start ``(K-1)//2``); the real
+    part unless ``is_complex``."""
     n, k = x.shape[0], h.shape[0]
     nfft = _next_pow2(n + k - 1)
     X = torch.fft.fft(x.to(torch.complex64), n=nfft, dim=0)
     H = torch.fft.fft(h.to(torch.complex64), n=nfft)
     start = (k - 1) // 2
     y = torch.fft.ifft(X * H[:, None], dim=0)[start:start + n]
-    if not is_complex:
-        y = y.real
-    return y[:, 0] if squeeze else y
+    return y if is_complex else y.real
 
 
 def overlap_save(x, h, nfft=None, freq_domain_filter=False):

@@ -38,6 +38,7 @@ from opticommpy_torch.models.config import LinearFiberConfig, SSFMConfig  # noqa
 from opticommpy_torch.ops import filtering as tfilt  # noqa: E402
 from opticommpy_torch.ops import signal as tsig  # noqa: E402
 from opticommpy_torch.ops import whitening as twh  # noqa: E402
+from opticommpy_torch import parallel as tpar  # noqa: E402
 from opticommpy_torch.utils import checkpoint as tck  # noqa: E402
 from opticommpy_torch.utils import units as tunits  # noqa: E402
 
@@ -213,3 +214,62 @@ def test_cpu_tensor_input_stays_on_the_cpu(name):
     }
     tensors = _tensors(cpu_calls[name](torch.as_tensor(_SIG)))
     assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+def test_init_distributed_needs_a_card_unless_the_cpu_is_asked_for():
+    """The parallel entry points' process group: NCCL on a card; without one,
+    init_distributed, local_device_count and make_mesh raise unless the
+    caller asks for gloo or the CPU, and there is no quiet fall to gloo."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    if torch.cuda.is_available():
+        assert tpar.init_distributed() == (0, 1)
+        assert dist.get_backend() == "nccl"
+        assert tpar.local_device_count() == torch.cuda.device_count()
+        dist.destroy_process_group()
+    else:
+        for call in (tpar.init_distributed, tpar.local_device_count,
+                     lambda: tpar.make_mesh(1, 1)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        assert not dist.is_initialized()
+    assert tpar.init_distributed(backend="gloo") == (0, 1)
+    assert dist.get_backend() == "gloo" and not tpar.is_multihost()
+    assert tpar.local_device_count(device="cpu") == 1
+    dist.destroy_process_group()
+
+
+@pytest.fixture
+def _mesh_of_one():
+    """A (1, 1) mesh and a 1-stage mesh on a group of one (NCCL with a card,
+    gloo on the CPU without one), closed after the test."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    mesh = tpar.make_mesh(1, 1, device_type=device_type)
+    yield mesh, DeviceMesh(device_type, torch.arange(1), mesh_dim_names=("stage",))
+    dist.destroy_process_group()
+
+
+PARALLEL_NUMPY_CALLS = {
+    "sharded_fir": lambda m, s: tpar.sharded_fir(_SIG, np.ones(5, np.float32), m),
+    "sharded_edc": lambda m, s: tpar.sharded_edc(_SIG, teq.EDCConfig(L=10, Fs=_FS), m),
+    "manakov_ssf_dp": lambda m, s: tpar.manakov_ssf_dp(_SIG, _SSFM, None, m),
+    "manakov_ssf_pp": lambda m, s: tpar.manakov_ssf_pp(_SIG, _SSFM, None, s),
+    "manakov_ssf_sp": lambda m, s: tpar.manakov_ssf_sp(_SIG, _SSFM, mesh=m),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARALLEL_NUMPY_CALLS))
+def test_numpy_input_to_a_parallel_entry_goes_to_the_card(name, _mesh_of_one):
+    """NumPy input to the sharded functions goes to the card, or raises
+    without one, as at every other entry point."""
+    call = PARALLEL_NUMPY_CALLS[name]
+    if torch.cuda.is_available():
+        tensors = _tensors(call(*_mesh_of_one))
+        assert tensors and all(t.is_cuda for t in tensors), name
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(*_mesh_of_one)
