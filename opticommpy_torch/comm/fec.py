@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from opticommpy_torch.utils.profiling import count
 from opticommpy_torch.utils.rng import default_device
 
 __all__ = [
@@ -763,6 +764,10 @@ def decode_ldpc(llrs, H=None, config: LDPCConfig = LDPCConfig(), graph=None):
       message types), SPA and CPU tensors on the plain roll route;
     - other graphs on the degree-bucketed decoder, or on the uniformly
       padded one when the graph has no buckets.
+
+    Counters (:func:`opticommpy_torch.utils.profiling.count`):
+    ``fec.codewords`` and ``fec.codeword_iters`` (the iterations each
+    codeword ran, summed).
     """
     if graph is None:
         graph = ldpc_graph(H)
@@ -810,6 +815,8 @@ def decode_ldpc(llrs, H=None, config: LDPCConfig = LDPCConfig(), graph=None):
     if n_in < n:
         out_llr = out_llr[:n_in]
     decoded = (out_llr < 0).to(torch.int8)
+    count("fec.codewords", decoded.shape[1])
+    count("fec.codeword_iters", n_iters)
     return decoded, out_llr, fail.to(torch.int8)
 
 

@@ -52,6 +52,7 @@ from opticommpy_torch.dsp.equalization import (
 )
 from opticommpy_torch.ops.filtering import fir_filter, pulse_shape
 from opticommpy_torch.ops.signal import decimate, pnorm, row_mean
+from opticommpy_torch.utils.profiling import span
 from opticommpy_torch.utils.rng import as_device_tensor
 
 __all__ = ["CoherentDSPConfig", "coherent_dsp_chain", "coherent_dsp_chain_batch",
@@ -212,6 +213,12 @@ def coherent_dsp_chain_batch(sig_batch, symb_ref_batch,
     chain does). BPS always runs on its kernel, whatever ``cprBackend`` says,
     with the batch folded into the mode axis.
 
+    Under a ``torch.profiler`` the stages are the spans ``rx.front_end``
+    (per signal ``.filter``, ``.edc``, ``.foe``, on the host only),
+    ``rx.equalizer`` (with the reference symbols' normalization),
+    ``rx.bps`` and ``rx.unwrap`` (with the derotation):
+    :func:`~opticommpy_torch.utils.profiling.span`.
+
     Parameters
     ----------
     sig_batch : (B, N, modes) received signals at ``SpS_in`` samples/symbol.
@@ -239,18 +246,23 @@ def coherent_dsp_chain_batch(sig_batch, symb_ref_batch,
     edc_cfg = EDCConfig(L=cfg.L, D=cfg.D, Fc=cfg.Fc, Fs=fs_dsp, Rs=cfg.Rs)
 
     def front(sig):
-        x = fir_filter(pulse, sig)
-        x = decimate(x, cfg.SpS_in, cfg.SpS_dsp)
-        x = pnorm(edc(x, edc_cfg))
-        if cfg.runCR:
-            # each signal has its own ADC clock: its own retiming
-            x = pnorm(ffw_clock_recovery(x, _ffw_config(cfg)))
-        if cfg.runFOE:
-            x, _ = fourth_power_foe(x, fs_dsp, 4)
-            x = pnorm(x)
+        with span("rx.front_end.filter", device=False):
+            x = fir_filter(pulse, sig)
+            x = decimate(x, cfg.SpS_in, cfg.SpS_dsp)
+        with span("rx.front_end.edc", device=False):
+            x = pnorm(edc(x, edc_cfg))
+        if cfg.runCR or cfg.runFOE:
+            with span("rx.front_end.foe", device=False):
+                if cfg.runCR:
+                    # each signal has its own ADC clock: its own retiming
+                    x = pnorm(ffw_clock_recovery(x, _ffw_config(cfg)))
+                if cfg.runFOE:
+                    x, _ = fourth_power_foe(x, fs_dsp, 4)
+                    x = pnorm(x)
         return x
 
-    x = torch.stack([front(s) for s in sig_batch])  # (B, n_dsp, modes)
+    with span("rx.front_end"):
+        x = torch.stack([front(s) for s in sig_batch])  # (B, n_dsp, modes)
     if cfg.runCR and symb_ref_batch.shape[1] > x.shape[1] // cfg.SpS_dsp:
         raise ValueError(
             f"symb_ref_batch has {symb_ref_batch.shape[1]} symbols but "
@@ -258,22 +270,25 @@ def coherent_dsp_chain_batch(sig_batch, symb_ref_batch,
             "((1 - crMaxPPM/1e6) * n_samples / SpS_dsp) — trim the "
             "reference")
     const = norm_const(cfg.M, "qam")
-    ref = torch.stack([pnorm(r) for r in symb_ref_batch])
-    if cfg.eqBackend == "pallas":
-        eq_cfg = MIMOEqualizerConfig(
-            nTaps=cfg.nTaps, SpS=cfg.SpS_dsp, mu=cfg.mu, alg=cfg.alg,
-            L=_stage_lengths(cfg, ref.shape[1]), M=cfg.M, numIter=2,
-            blockUpdate=cfg.blockUpdate, backend="pallas")
-        y = mimo_adapt_equalizer_batch(x, eq_cfg, symb_ref=ref)
-    else:
-        y, _ = mimo_eq_kernel_batch(x, ref, const, alg="lms", n_taps=cfg.nTaps,
-                                    sps=cfg.SpS_dsp, mu=float(cfg.mu[-1]),
-                                    n_train=cfg.nTrain)
+    with span("rx.equalizer"):
+        ref = torch.stack([pnorm(r) for r in symb_ref_batch])
+        if cfg.eqBackend == "pallas":
+            eq_cfg = MIMOEqualizerConfig(
+                nTaps=cfg.nTaps, SpS=cfg.SpS_dsp, mu=cfg.mu, alg=cfg.alg,
+                L=_stage_lengths(cfg, ref.shape[1]), M=cfg.M, numIter=2,
+                blockUpdate=cfg.blockUpdate, backend="pallas")
+            y = mimo_adapt_equalizer_batch(x, eq_cfg, symb_ref=ref)
+        else:
+            y, _ = mimo_eq_kernel_batch(x, ref, const, alg="lms", n_taps=cfg.nTaps,
+                                        sps=cfg.SpS_dsp, mu=float(cfg.mu[-1]),
+                                        n_train=cfg.nTrain)
     b, n_sym, m = y.shape
-    y_cols = y.transpose(0, 1).reshape(n_sym, b * m)
-    phases = bps_kernel(y_cols, cfg.cpr_window // 2, const, cfg.cpr_phases)
-    phases = unwrap(4 * phases, dim=0) / 4
-    out = (y_cols * torch.exp(1j * phases)).reshape(n_sym, b, m)
+    with span("rx.bps"):
+        y_cols = y.transpose(0, 1).reshape(n_sym, b * m)
+        phases = bps_kernel(y_cols, cfg.cpr_window // 2, const, cfg.cpr_phases)
+    with span("rx.unwrap"):
+        phases = unwrap(4 * phases, dim=0) / 4
+        out = (y_cols * torch.exp(1j * phases)).reshape(n_sym, b, m)
     return out.transpose(0, 1), phases
 
 
