@@ -14,9 +14,12 @@ Phases:
    C's (x 22 modes) and path I's (60,436 x 2, 16 points, window 51), on
    8-PSK and at small cases that run the rest of its instances
    (``BPS_CASES``), and its threshold slicer against the division on all
-   2^32 float32 inputs per grid; K2, the MIMO equalizer, for each of its
-   five rules at 4,096 symbols, 2x2, 15 taps, and at the main path's first
-   training pass (12,000 symbols, da-rde); K3, the batched equalizer, for
+   2^32 float32 inputs per grid; K15, the unwrap with the derotation fused
+   in, against its plain twin (turns and phases bit for bit) at the batch
+   chain's and path C's 65,536 x 22, the chain's 65,536 x 2 and small cases
+   (``UNWRAP_CASES``), timed beside today's PyTorch ops; K2, the MIMO
+   equalizer, for each of its five rules at 4,096 symbols, 2x2, 15 taps,
+   and at the main path's first training pass (12,000 symbols, da-rde); K3, the batched equalizer, for
    the five rules at B=3 x 4,096 symbols, bit-identical per signal to K2,
    and at B=11 x 12,000 symbols (da-rde); K5, the batched RLS, at B=11 x
    12,000 symbols for rls and dd-rls (lambda 0.99); K4, the single-signal
@@ -265,7 +268,7 @@ Phases:
    over the ``data`` dim, bit for bit with the unsharded call and the same
    launches (K11 1, K3 3); ``dryrun_multichip(1)``; every stage's
    host-clock time beside the card's name and power limit.
-20. the time of every phase; then the kernels JSON line (K1-K14, each with
+20. the time of every phase; then the kernels JSON line (K1-K15, each with
    its bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s;
    K1 and K2 also with their path I, L and M launches, K1 with phase K's,
    K3 and K11 with phase O's), and last the ``{"ok": true, "device": ...}``
@@ -568,11 +571,12 @@ def _cuda_ms(fn, reps, warmup=True):
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, kernel, reps):
+def _device_ms(fn, kernel, reps, per_call=1):
     """(mean device milliseconds per call of ``fn`` in the kernels whose name
     holds ``kernel``, device kernels of any name per call), by
     torch.profiler: without the host's gaps between calls, which CUDA
-    events around back-to-back calls include."""
+    events around back-to-back calls include. ``per_call`` is how many such
+    kernels one call launches (None: any number)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -582,8 +586,14 @@ def _device_ms(fn, kernel, reps):
             fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    mine = [e.self_device_time_total for e in kernels if kernel in e.name]
-    _check(len(mine) == reps, f"profiler saw {len(mine)} {kernel} launches for {reps} calls")
+    mine = [e for e in kernels if kernel in e.name]
+    if per_call is not None and len(mine) != per_call * reps:
+        names = {}
+        for e in mine:
+            names[e.name] = names.get(e.name, 0) + 1
+        _check(False, f"profiler saw {len(mine)} {kernel} launches for {reps} calls, expected "
+               f"{per_call * reps}: {names}")
+    mine = [e.self_device_time_total for e in mine]
     return sum(mine) / reps / 1e3, len(kernels) / reps
 
 
@@ -931,10 +941,105 @@ def phase_bps_kernel(dev, rng):
     return report
 
 
+# K15's cases: (label, N, C, m). The batch chain's and path C's 11 polmux
+# signals, the single chain's 2 modes, and small ones: one chunk (352 rows
+# at 22 columns), a last chunk of one row, more columns than one CTA takes,
+# m = 1 as V&V's unwrap runs.
+UNWRAP_CASES = (
+    ("batch chain, path C", 65536, 22, 4),
+    ("chain", 65536, 2, 4),
+    ("one chunk", 352, 22, 4),
+    ("a row over", 353, 22, 4),
+    ("40 columns", 70001, 40, 4),
+    ("m 1", 5000, 3, 1),
+)
+UNWRAP_TIMED = ("batch chain, path C", "chain")
+
+
+def _unwrap_cost(n, cols):
+    """(bytes, flops) of K15: float32 phases and complex64 symbols read and
+    both written once; ~40 float operations an element (sincosf ~20)."""
+    return n * cols * (4 + 8) * 2, 40 * n * cols
+
+
+def phase_unwrap_kernel(dev, rng):
+    """K15 against its plain twin at every case of UNWRAP_CASES: turns and
+    phases bit for bit, derotated symbols within 1e-6 of |y|, one call
+    counted a call, two runs bit-identical; at the main path's shapes its
+    time (CUDA events; device time by torch.profiler) beside its bound,
+    the PyTorch ops it replaced (the float corrections of 4 phi summed
+    along the rows, over 4, and ``y * exp(1j theta)``) as ``plain``, and
+    its plain twin with the integer scan along the inner dim as ``twin``."""
+    from opticommpy_torch.kernels import _build
+    from opticommpy_torch.kernels import unwrap as tunwrap
+    from opticommpy_torch.utils.scan import cumsum
+
+    report = None
+    for label, n, cols, m in UNWRAP_CASES:
+        p = np.cumsum(rng.normal(scale=0.8, size=(n, cols)), axis=0)
+        phi = torch.as_tensor((np.mod(p, 2 * np.pi) / m).astype(np.float32), device=dev)
+        y = torch.as_tensor(_noisy(rng, n, cols, np.asarray(_bps_const("qam16"))), device=dev)
+        before = tunwrap.launches
+        got = tunwrap.unwrap_derotate_kernel(phi, y, m)
+        again = tunwrap.unwrap_derotate_kernel(phi, y, m)
+        n_launch = tunwrap.launches - before
+        theta_p, y_p = tunwrap.unwrap_derotate_plain(phi, y, m)
+        torch.cuda.synchronize()
+        turns_equal = bool(torch.equal(tunwrap.turns(got[0], phi, m),
+                                       tunwrap.turns(theta_p, phi, m)))
+        phases_equal = bool(torch.equal(got[0], theta_p))
+        y_err = float((got[1] - y_p).abs().max()) / float(y.abs().max())
+        repeat = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        line = (f"K15 unwrap {label} ({n}x{cols}, m={m}): turns equal {turns_equal}, phases "
+                f"equal {phases_equal}, symbols max rel err {y_err:.2e}, two runs "
+                f"bit-identical {repeat}, launches {n_launch} for 2 calls")
+        entry = dict(max_abs_err=y_err, turns_equal=turns_equal, phases_equal=phases_equal)
+        if label in UNWRAP_TIMED:
+            call = lambda: tunwrap.unwrap_derotate_kernel(phi, y, m)  # noqa: E731
+            per_call = 2 if _build.load_library().unwrap_scratch_len(n, cols) else 1
+
+            def plain():
+                # the PyTorch ops K15 replaced: the float corrections summed
+                # along the rows by utils/scan.cumsum (an outer-dim scan)
+                x = m * phi
+                rest = x[1:] + cumsum(tunwrap.step_corrections(x, 0), dim=0)
+                return y * torch.exp(1j * (torch.cat([x[:1], rest]) / m))
+
+            def twin():
+                # K15's plain twin with its integer scan along the inner dim
+                theta, out = tunwrap.unwrap_derotate_plain(phi.t().contiguous(),
+                                                           y.t().contiguous(), m, dim=1)
+                return theta.t().contiguous(), out.t().contiguous()
+            entry["ms"] = _cuda_ms(call, 50)
+            entry["device_ms"], _ = _device_ms(call, "unwrap_", 50, per_call)
+            entry["plain_ms"] = _cuda_ms(plain, 10)
+            entry["twin_ms"] = _cuda_ms(twin, 20)
+            entry["twin_device_ms"], entry["twin_kernels"] = _device_ms(twin, "", 20, None)
+            entry["twin_equal"] = bool(torch.equal(twin()[0], got[0]))
+            _with_bound(entry, *_unwrap_cost(n, cols))
+            line += (f"; kernel {entry['ms']:.4f} ms (device {entry['device_ms']:.4f} ms in "
+                     f"{per_call} launches), plain {entry['plain_ms']:.3f} ms, twin with an "
+                     f"inner-dim scan {entry['twin_ms']:.4f} ms (device "
+                     f"{entry['twin_device_ms']:.4f} ms in {entry['twin_kernels']:.0f} "
+                     f"kernels, phases equal {entry['twin_equal']}), bound "
+                     f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}, "
+                     f"{entry['bound_ms'] / entry['ms']:.1%} by the call, "
+                     f"{entry['bound_ms'] / entry['device_ms']:.1%} by device time)")
+        print(line)
+        _check(turns_equal and phases_equal and y_err <= 1e-6 and repeat and n_launch == 2,
+               f"K15 disagrees with its plain twin or did not launch once a call ({label})")
+        if report is None:
+            report = entry
+        else:
+            report.setdefault("cases", {})[label] = entry
+    return report
+
+
 def phase_kernels_vs_plain(dev, const):
     from opticommpy_torch.kernels import mimo_eq
 
     report = {"bps": phase_bps_kernel(dev, np.random.default_rng(1))}
+    report["unwrap"] = phase_unwrap_kernel(dev, np.random.default_rng(15))
 
     # K2: the adaptive equalizer recurrence, each rule
     def polmux(n_sym, seed):
@@ -1067,6 +1172,7 @@ def run_wdm_paths(dev, res, n_channels=11, n_train=12000):
     from dataclasses import replace
 
     from opticommpy_torch.kernels import bps, mimo_eq, rls
+    from opticommpy_torch.kernels import unwrap as tunwrap
     from opticommpy_torch.pipelines import CoherentDSPConfig, coherent_dsp_chain_batch
 
     (sig_b, ref_b), rx_s = _wall(lambda: receive_wdm(res, n_channels))
@@ -1079,17 +1185,17 @@ def run_wdm_paths(dev, res, n_channels=11, n_train=12000):
     for name, algs in (("da-rde/dd-lms", ("da-rde", "dd-lms")),
                        ("rls/dd-rls", ("rls", "dd-rls"))):
         cfg_s = replace(cfg, alg=algs)
-        bps.launches = mimo_eq.launches = mimo_eq.batch_launches = 0
+        bps.launches = tunwrap.launches = mimo_eq.launches = mimo_eq.batch_launches = 0
         rls.launches = rls.batch_launches = 0
         (y, phases), first_s = _wall(lambda: coherent_dsp_chain_batch(sig_b, ref_b, cfg_s))
-        counts = dict(bps=bps.launches, mimo_eq=mimo_eq.launches,
+        counts = dict(bps=bps.launches, unwrap=tunwrap.launches, mimo_eq=mimo_eq.launches,
                       mimo_eq_batch=mimo_eq.batch_launches, rls=rls.launches,
                       rls_batch=rls.batch_launches)
         print(f"WDM {name} launches: {counts}")
         if name == "da-rde/dd-lms":
-            expect = dict(bps=1, mimo_eq=0, mimo_eq_batch=3, rls=0, rls_batch=0)
+            expect = dict(bps=1, unwrap=1, mimo_eq=0, mimo_eq_batch=3, rls=0, rls_batch=0)
         else:
-            expect = dict(bps=1, mimo_eq=0, mimo_eq_batch=0, rls=0, rls_batch=3)
+            expect = dict(bps=1, unwrap=1, mimo_eq=0, mimo_eq_batch=0, rls=0, rls_batch=3)
         _check(counts == expect, f"WDM {name}: launches {counts}, expected {expect}")
         _check(tuple(y.shape) == (n_channels, n_sym, 2) and y.device == dev
                and tuple(phases.shape) == (n_sym, 2 * n_channels),
@@ -1280,9 +1386,9 @@ def _retained(n_samples_in):
 
 def _counts():
     from opticommpy_torch.kernels import (bps, ddpll, dfe, gardner, ldpc, lift, mimo_eq, qc,
-                                          qc_mega, rls, volterra)
+                                          qc_mega, rls, unwrap, volterra)
 
-    return dict(bps=bps.launches, mimo_eq=mimo_eq.launches,
+    return dict(bps=bps.launches, unwrap=unwrap.launches, mimo_eq=mimo_eq.launches,
                 mimo_eq_batch=mimo_eq.batch_launches, rls=rls.launches,
                 rls_batch=rls.batch_launches, gardner=gardner.launches,
                 ddpll=ddpll.launches, ldpc_check=ldpc.launches,
@@ -1293,16 +1399,16 @@ def _counts():
 
 def _reset_counts():
     from opticommpy_torch.kernels import (bps, ddpll, dfe, gardner, ldpc, lift, mimo_eq, qc,
-                                          qc_mega, rls, volterra)
+                                          qc_mega, rls, unwrap, volterra)
 
-    bps.launches = mimo_eq.launches = mimo_eq.batch_launches = 0
+    bps.launches = unwrap.launches = mimo_eq.launches = mimo_eq.batch_launches = 0
     rls.launches = rls.batch_launches = gardner.launches = ddpll.launches = 0
     ldpc.launches = qc.check_launches = qc.var_launches = 0
     qc_mega.launches = lift.launches = dfe.launches = volterra.launches = 0
 
 
 def _expect(**nonzero):
-    out = dict.fromkeys(("bps", "mimo_eq", "mimo_eq_batch", "rls", "rls_batch", "gardner",
+    out = dict.fromkeys(("bps", "unwrap", "mimo_eq", "mimo_eq_batch", "rls", "rls_batch", "gardner",
                          "ddpll", "ldpc_check", "qc_check", "qc_var", "qc_mega",
                          "lift_iter", "dfe", "volterra"), 0)
     out.update(nonzero)
@@ -1341,7 +1447,7 @@ def run_cr_path_a(dev, res, n_train=12000):
     (y, phases), first_s = _wall(lambda: coherent_dsp_chain(sig_off, d_cr, cfg))
     counts = _counts()
     print(f"path A launches: {counts}")
-    _check(counts == _expect(gardner=1, mimo_eq=3, bps=1),
+    _check(counts == _expect(gardner=1, mimo_eq=3, bps=1, unwrap=1),
            f"path A: launches {counts}, expected K6 1, K2 3, K1 1")
     _check(tuple(y.shape) == tuple(d_cr.shape) and y.is_cuda and bool(torch.isfinite(y).all()),
            f"path A: unexpected output {tuple(y.shape)}")
@@ -1446,7 +1552,7 @@ def run_cr_path_b(dev, res, sig_b, ref_b, n_train=12000):
     (y, phases), first_s = _wall(lambda: coherent_dsp_chain_batch(sig_o, ref_o, cfg))
     counts = _counts()
     print(f"path B launches: {counts}")
-    _check(counts == _expect(mimo_eq_batch=3, bps=1),
+    _check(counts == _expect(mimo_eq_batch=3, bps=1, unwrap=1),
            f"path B: launches {counts}, expected K3 3, K1 1, K6 0")
     _check(tuple(y.shape) == tuple(ref_o.shape) and bool(torch.isfinite(y).all()),
            f"path B: unexpected output {tuple(y.shape)}")
@@ -1554,7 +1660,8 @@ def run_serve_path_c(dev, res, n_train=12000, n_channels=11):
     (out, phases), serve_first_s = _wall(lambda: coherent_dsp_serve(x_b, H_b, cfg, scale_b))
     serve_counts = _counts()
     print(f"path C serve launches: {serve_counts}")
-    _check(serve_counts == _expect(bps=1), f"path C serve: {serve_counts}, expected K1 1")
+    _check(serve_counts == _expect(bps=1, unwrap=1),
+           f"path C serve: {serve_counts}, expected K1 1, K15 1")
     n_cols = 2 * n_channels
     _check(tuple(out.shape) == (n_channels, n_sym, 2) and tuple(phases.shape) == (n_sym, n_cols)
            and bool(torch.isfinite(out).all()), f"path C serve: output {tuple(out.shape)}")
@@ -1587,7 +1694,8 @@ def run_serve_path_c(dev, res, n_train=12000, n_channels=11):
     pll, pll_s = _wall(lambda: cpr(y_cols, cpr_cfg, symb_tx=r_cols, pilot_ind=pilots))
     pll_counts = _counts()
     print(f"path C DD-PLL launches: {pll_counts}, {pll_s:.3f} s for {n_cols} x {n_sym} symbols")
-    _check(pll_counts == _expect(ddpll=1), f"path C DD-PLL: {pll_counts}, expected K7 1")
+    _check(pll_counts == _expect(ddpll=1, unwrap=1),
+           f"path C DD-PLL: {pll_counts}, expected K7 1, K15 1")
     pll = pll.reshape(n_sym, n_channels, 2).transpose(0, 1)
     failures = []
     disc = n_train + 2000
@@ -2230,8 +2338,8 @@ def run_coded_path_d(dev, res, n_train=12000, n_channels=11, seed=7):
     print(f"path D serve + decode launches: {counts} (iterations mean "
           f"{float(n_iters.float().mean()):.2f} max {int(n_iters.max())}); plain-version "
           f"calls {plain_calls}; {serve_s:.3f} s for {n_cw} codewords")
-    _check(counts == _expect(bps=1, qc_mega=1),
-           f"path D: launches {counts}, expected K1 1, K11 1 and no K9/K10")
+    _check(counts == _expect(bps=1, unwrap=1, qc_mega=1),
+           f"path D: launches {counts}, expected K1 1, K15 1, K11 1 and no K9/K10")
     _check(not any(plain_calls), f"path D reached a plain version: {plain_calls}")
     _check(tuple(bits.shape) == (64800, n_cw) and tuple(fail.shape) == (n_cw,)
            and tuple(out.shape) == (n_channels, n_sym, 2) and bool(torch.isfinite(out).all()),
@@ -2811,8 +2919,9 @@ def run_dbp_path_i(dev, n_bits=2**18):
     counts = _counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"path I launches: {counts}")
-    _check(counts == _expect(bps=2 * len(DBP_POWERS), mimo_eq=6 * len(DBP_POWERS)),
-           f"path I launched {counts}, expected K1 x {2 * len(DBP_POWERS)} "
+    _check(counts == _expect(bps=2 * len(DBP_POWERS), unwrap=2 * len(DBP_POWERS),
+                             mimo_eq=6 * len(DBP_POWERS)),
+           f"path I launched {counts}, expected K1 and K15 x {2 * len(DBP_POWERS)} "
            f"(one per arm and power) and K2 x {6 * len(DBP_POWERS)} (one per training pass)")
 
     failures = []
@@ -3113,7 +3222,8 @@ def run_scan_phase_k(dev, res, sig_b, ref_b, dsp_warm_s, n_train=12000, n_eq=409
     (y, phases), first_s = _wall(lambda: coherent_dsp_chain(sig, ref, cfg))
     counts = _counts()
     print(f"K-chain launches: {counts}")
-    _check(counts == _expect(bps=1), f"K-chain: launches {counts}, expected K1 1, K2 = K3 = 0")
+    _check(counts == _expect(bps=1, unwrap=1),
+           f"K-chain: launches {counts}, expected K1 1, K15 1, K2 = K3 = 0")
     _check(tuple(y.shape) == (n_sym, 2) and y.is_cuda and bool(torch.isfinite(y).all())
            and bool(torch.isfinite(phases).all()), f"K-chain: unexpected output {tuple(y.shape)}")
     (y2, _), warm_s = _wall(lambda: coherent_dsp_chain(sig, ref, cfg))
@@ -3140,7 +3250,8 @@ def run_scan_phase_k(dev, res, sig_b, ref_b, dsp_warm_s, n_train=12000, n_eq=409
     (yb, phb), first_s = _wall(lambda: coherent_dsp_chain_batch(sig_b, ref_b, cfg))
     counts = _counts()
     print(f"K-batch launches: {counts}")
-    _check(counts == _expect(bps=1), f"K-batch: launches {counts}, expected K1 1, K3 0")
+    _check(counts == _expect(bps=1, unwrap=1),
+           f"K-batch: launches {counts}, expected K1 1, K15 1, K3 0")
     _check(tuple(yb.shape) == tuple(ref_b.shape) and bool(torch.isfinite(yb).all())
            and tuple(phb.shape) == (ref_b.shape[1], 2 * n_ch),
            f"K-batch: unexpected output {tuple(yb.shape)}")
@@ -3381,8 +3492,8 @@ def run_edfa_path_l(dev, n_bits=2**18, n_channels=11, n_train=2000):
     torch.cuda.synchronize()
     counts = _counts()
     print(f"path L launches: {counts}")
-    _check(counts == _expect(bps=1, mimo_eq=3),
-           f"path L launched {counts}, expected K1 x 1 and K2 x 3")
+    _check(counts == _expect(bps=1, unwrap=1, mimo_eq=3),
+           f"path L launched {counts}, expected K1 x 1, K15 x 1 and K2 x 3")
     _check(bool(torch.isfinite(y).all()) and y.is_cuda, "path L: non-finite or off-card output")
     disc = n_train + 500
     yy, dd = y[disc:-64], d_ref[disc:-64]
@@ -3645,8 +3756,9 @@ def run_pert_path_m(dev, n_symbols=98_304):
     torch.cuda.synchronize()
     counts = _counts()
     print(f"path M launches: {counts}")
-    _check(counts == _expect(bps=len(PERT_POWERS), mimo_eq=3 * len(PERT_POWERS)),
-           f"path M launched {counts}, expected K1 x {len(PERT_POWERS)} and K2 x "
+    _check(counts == _expect(bps=len(PERT_POWERS), unwrap=len(PERT_POWERS),
+                             mimo_eq=3 * len(PERT_POWERS)),
+           f"path M launched {counts}, expected K1 and K15 x {len(PERT_POWERS)} and K2 x "
            f"{3 * len(PERT_POWERS)}")
     failures = []
     for p_dbm in PERT_POWERS:
@@ -3917,6 +4029,7 @@ def main():
     phase_build()
     from opticommpy_torch.comm.modulation import norm_const
     from opticommpy_torch.kernels import bps, mimo_eq
+    from opticommpy_torch.kernels import unwrap as tunwrap
 
     const = norm_const(16, "qam")
     phase_s = {}
@@ -3931,8 +4044,9 @@ def main():
 
     bps.launches = 0
     mimo_eq.launches = 0
+    tunwrap.launches = 0
     res, times = run_main_path(dev)
-    launches = {"bps": bps.launches, "mimo_eq": mimo_eq.launches}
+    launches = {"bps": bps.launches, "mimo_eq": mimo_eq.launches, "unwrap": tunwrap.launches}
     print(f"main path launches: {launches}")
 
     n_samples = res["sig_tx"].shape[0]
@@ -3946,6 +4060,7 @@ def main():
 
     # checks
     _check(launches["bps"] >= 1, "the main path never launched the BPS kernel")
+    _check(launches["unwrap"] >= 1, "the main path never launched the unwrap kernel")
     _check(launches["mimo_eq"] >= 3, "the main path launched the equalizer kernel "
            f"{launches['mimo_eq']} times, expected one per training pass (3)")
     y = res["y"]
@@ -4131,6 +4246,9 @@ def main():
              replaces="opticommpy_tpu/kernels/volterra_pallas.py:115",
              launches=path_h["vol_counts"]["volterra"], **report["volterra"],
              path_h=path_h["k14"]),
+        dict(name="unwrap", route="cuda", source="opticommpy_torch/csrc/unwrap.cu",
+             replaces="no Pallas counterpart (jnp.unwrap)", launches=launches["unwrap"],
+             **report["unwrap"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ from opticommpy_torch.dsp.carrier_recovery import (  # noqa: F401
     fourth_power_foe,
     residual_linewidth,
     unwrap,
+    unwrap_derotate,
     viterbi,
 )
 from opticommpy_torch.dsp.clock_recovery import (  # noqa: F401

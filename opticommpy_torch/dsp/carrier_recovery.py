@@ -2,10 +2,14 @@
 4th-power FOE.
 
 Port of ``opticommpy_tpu/dsp/carrier_recovery.py``, plus :func:`unwrap`, the
-counterpart of ``jnp.unwrap`` that torch lacks. :func:`ddpll` is the
-reference's per-symbol PLL rule on any device; ``cpr(alg="ddpll-pallas")``
-runs the DD-PLL on the Hopper kernel (``kernels/ddpll.py``, K7) for a CUDA
-tensor, and ``alg="bps-pallas"`` BPS on K1.
+counterpart of ``jnp.unwrap`` that torch lacks, and :func:`unwrap_derotate`,
+the receivers' unwrap of the 4th-power phase and derotation in one call.
+Both run on the Hopper kernel K15 (``kernels/unwrap.py``) for a CUDA
+tensor and as its plain twin's PyTorch ops for a CPU tensor.
+:func:`ddpll` is the reference's per-symbol PLL rule on any device;
+``cpr(alg="ddpll-pallas")`` runs the DD-PLL on the Hopper kernel
+(``kernels/ddpll.py``, K7) for a CUDA tensor, and ``alg="bps-pallas"`` BPS
+on K1.
 """
 
 import math
@@ -16,12 +20,12 @@ import torch
 
 from opticommpy_torch.comm.modulation import gray_mapping
 from opticommpy_torch.comm.sources import symbol_pmf
+from opticommpy_torch.kernels.unwrap import unwrap_derotate_kernel, unwrap_derotate_plain
 from opticommpy_torch.ops.signal import fftfreq, moving_average, pnorm
 from opticommpy_torch.utils.rng import as_device_tensor
-from opticommpy_torch.utils.scan import cumsum
 
 __all__ = ["CPRConfig", "cpr", "bps", "ddpll", "viterbi", "fourth_power_foe",
-           "residual_linewidth", "unwrap"]
+           "residual_linewidth", "unwrap", "unwrap_derotate"]
 
 
 @dataclass(frozen=True)
@@ -41,19 +45,48 @@ class CPRConfig:
     runFOE: bool = True
 
 
+def _rows(x):
+    """``x`` as contiguous (N, C) columns, N its first dimension."""
+    return x.reshape(x.shape[0], math.prod(x.shape[1:])).contiguous()
+
+
 def unwrap(p, dim=0, period=2 * math.pi):
-    """``jnp.unwrap`` along ``dim``: remove jumps larger than period/2."""
+    """``jnp.unwrap`` along ``dim``: remove jumps larger than period/2.
+
+    Each step's correction is taken as whole periods and summed exactly,
+    with one rounding per output: on K15
+    (:func:`~opticommpy_torch.kernels.unwrap.unwrap_derotate_kernel`, with
+    ``m = 1``) for a CUDA tensor, which has to be float32, and in PyTorch
+    ops (:func:`~opticommpy_torch.kernels.unwrap.unwrap_derotate_plain`)
+    for a CPU tensor.
+    """
     p = as_device_tensor(p)
-    if p.shape[dim] == 0:
-        return p
-    interval = torch.tensor(period / 2, dtype=p.dtype, device=p.device)
-    period_t = torch.tensor(period, dtype=p.dtype, device=p.device)
-    dd = torch.diff(p, dim=dim)
-    ddmod = torch.remainder(dd + interval, period_t) - interval
-    ddmod = torch.where((ddmod == -interval) & (dd > 0), interval, ddmod)
-    ph_correct = torch.where(torch.abs(dd) < interval, 0.0, ddmod - dd)
-    rest = p.narrow(dim, 1, p.shape[dim] - 1) + cumsum(ph_correct, dim=dim)
-    return torch.cat([p.narrow(dim, 0, 1), rest], dim=dim)
+    if not p.is_cuda:
+        return unwrap_derotate_plain(p, None, 1.0, period, dim)[0]
+    x = p.movedim(dim, 0)
+    theta = unwrap_derotate_kernel(_rows(x), m=1.0, period=period)[0]
+    return theta.reshape(x.shape).movedim(0, dim)
+
+
+def unwrap_derotate(phases, y, m=4, period=2 * math.pi):
+    """``(y * exp(1j * theta), theta)`` with ``theta = unwrap(m * phases,
+    period=period) / m`` along dim 0: the carrier phase of an M-th power
+    estimator unwrapped and taken off the symbols ``y`` of its shape.
+
+    For CUDA tensors, float32 ``phases`` and complex64 ``y``, one call of
+    K15 does both in one pass; CPU tensors take the same rule in PyTorch
+    ops.
+    """
+    phases = as_device_tensor(phases)
+    y = torch.as_tensor(y).to(phases.device)
+    if y.shape != phases.shape:
+        raise ValueError(f"unwrap_derotate: y {tuple(y.shape)} is not of the phases' shape "
+                         f"{tuple(phases.shape)}")
+    if not phases.is_cuda:
+        theta, out = unwrap_derotate_plain(phases, y, m, period)
+        return out, theta
+    theta, out = unwrap_derotate_kernel(_rows(phases), _rows(y), m=m, period=period)
+    return out.reshape(y.shape), theta.reshape(phases.shape)
 
 
 def bps(sig, n_half, const_symb, n_phases):

@@ -23,6 +23,8 @@
   the real instance for PAM (replaces ``kernels/dfe_pallas.py``).
 - :mod:`volterra` — the 2nd/3rd-order Volterra LMS recurrence, one warp
   per signal (replaces ``kernels/volterra_pallas.py``).
+- :mod:`unwrap` — phase unwrapping by whole turns with the derotation
+  fused in (no Pallas counterpart: the JAX package uses ``jnp.unwrap``).
 
 A wrapper runs the plain version for a CPU tensor, and the kernel, or
 raises, for a CUDA tensor. The kernels are built with nvcc on first use

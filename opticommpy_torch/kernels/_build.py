@@ -62,6 +62,8 @@ _SIGNATURES = {
                         _P, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
     "volterra_exact_check": [ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _I, _F, _F, _F, _P,
                              _P],
+    "unwrap_scratch_len": [_I, _I],
+    "unwrap_launch": [_P, _P, _I, _I, _F, _F, _F, _F, ctypes.c_double, _P, _P, _P, _P],
 }
 
 _lib = None

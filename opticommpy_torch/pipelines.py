@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from opticommpy_torch.comm.modulation import norm_const
-from opticommpy_torch.dsp.carrier_recovery import bps, fourth_power_foe, unwrap
+from opticommpy_torch.dsp.carrier_recovery import bps, fourth_power_foe, unwrap_derotate
 from opticommpy_torch.dsp.clock_recovery import (
     ClockRecoveryConfig,
     FFWClockRecoveryConfig,
@@ -194,9 +194,8 @@ def coherent_dsp_chain(sig, symb_ref, config: CoherentDSPConfig = CoherentDSPCon
         phases = bps_kernel(y, cfg.cpr_window // 2, const, cfg.cpr_phases)
     else:
         phases = bps(y, cfg.cpr_window // 2, torch.as_tensor(const), cfg.cpr_phases)
-    phases = unwrap(4 * phases, dim=0) / 4
-    y = pnorm(y * torch.exp(1j * phases))
-    return y, phases
+    y, phases = unwrap_derotate(phases, y, 4)
+    return pnorm(y), phases
 
 
 def coherent_dsp_chain_batch(sig_batch, symb_ref_batch,
@@ -216,8 +215,8 @@ def coherent_dsp_chain_batch(sig_batch, symb_ref_batch,
     Under a ``torch.profiler`` the stages are the spans ``rx.front_end``
     (per signal ``.filter``, ``.edc``, ``.foe``, on the host only),
     ``rx.equalizer`` (with the reference symbols' normalization),
-    ``rx.bps`` and ``rx.unwrap`` (with the derotation):
-    :func:`~opticommpy_torch.utils.profiling.span`.
+    ``rx.bps`` and ``rx.unwrap`` (with the derotation; one call of K15
+    for CUDA tensors): :func:`~opticommpy_torch.utils.profiling.span`.
 
     Parameters
     ----------
@@ -287,9 +286,8 @@ def coherent_dsp_chain_batch(sig_batch, symb_ref_batch,
         y_cols = y.transpose(0, 1).reshape(n_sym, b * m)
         phases = bps_kernel(y_cols, cfg.cpr_window // 2, const, cfg.cpr_phases)
     with span("rx.unwrap"):
-        phases = unwrap(4 * phases, dim=0) / 4
-        out = (y_cols * torch.exp(1j * phases)).reshape(n_sym, b, m)
-    return out.transpose(0, 1), phases
+        out, phases = unwrap_derotate(phases, y_cols, 4)
+    return out.reshape(n_sym, b, m).transpose(0, 1), phases
 
 
 def coherent_dsp_serve(sig_batch, H_batch, config: CoherentDSPConfig = CoherentDSPConfig(),
@@ -337,8 +335,8 @@ def coherent_dsp_serve(sig_batch, H_batch, config: CoherentDSPConfig = CoherentD
     b, n_sym, m = y.shape
     y_cols = y.transpose(0, 1).reshape(n_sym, b * m)
     phases = bps_kernel(y_cols, cfg.cpr_window // 2, norm_const(cfg.M, "qam"), cfg.cpr_phases)
-    phases = unwrap(4 * phases, dim=0) / 4
-    out = (y_cols * torch.exp(1j * phases)).reshape(n_sym, b, m).transpose(0, 1)
+    out, phases = unwrap_derotate(phases, y_cols, 4)
+    out = out.reshape(n_sym, b, m).transpose(0, 1)
     return (out[0], phases[:, :m]) if squeeze else (out, phases)
 
 

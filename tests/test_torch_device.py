@@ -85,6 +85,7 @@ NUMPY_INPUT_CALLS = {
     "mimo_apply_fused": lambda: teq.mimo_apply_fused(_TAPS, _SIG, scale=1.0),
     # carrier recovery
     "unwrap": lambda: tcr.unwrap(4 * _PHASE),
+    "unwrap_derotate": lambda: tcr.unwrap_derotate(_PHASE, _SYM, 4),
     "bps": lambda: tcr.bps(_SYM, 4, _C16, 16),
     "ddpll": lambda: tcr.ddpll(_SYM[:64], 1 / 32e9, 0.1, 1e-8, 1e-8, _C16),
     "viterbi": lambda: tcr.viterbi(_SYM),

@@ -21,6 +21,7 @@ from opticommpy_torch.comm import metrics as tmetrics  # noqa: E402
 from opticommpy_torch.convert import config_from_jax  # noqa: E402
 from opticommpy_torch.dsp import carrier_recovery as tcr  # noqa: E402
 from opticommpy_torch.dsp import equalization as teq  # noqa: E402
+from opticommpy_torch.kernels import unwrap as tunwrap  # noqa: E402
 from opticommpy_torch.ops import filtering as tfilt  # noqa: E402
 from opticommpy_torch.ops import noise as tnoise  # noqa: E402
 from opticommpy_torch.ops import signal as tsig  # noqa: E402
@@ -124,6 +125,83 @@ def test_unwrap_long_1d_matches_jnp():
     ref = np.asarray(jnp.unwrap(wrapped))
     out = tcr.unwrap(torch.as_tensor(wrapped), dim=0)
     np.testing.assert_allclose(to_np(out), ref, rtol=0, atol=1e-3)
+
+
+def _unwrap_case(kind, m, n, c):
+    """(N, C) float32 phases for the integer-turn unwrap of ``m`` times them:
+    a wrapped random walk as in test_unwrap_matches_jnp, or BPS's 64 test
+    phases over [0, pi/2) (scaled by 4 / m) in a random walk whose steps of
+    32 test phases are exact half periods of m times the phase, both signs."""
+    rng = np.random.default_rng(1000 * m + n + c + (kind == "grid"))
+    if kind == "walk":
+        p = np.cumsum(rng.normal(scale=1.5, size=(n, c)), axis=0)
+        return np.angle(np.exp(1j * p)).astype(np.float32)
+    grid = (torch.arange(64, dtype=torch.float32) * (np.pi / 2) / 64).numpy()
+    idx = np.cumsum(rng.choice([-32, -1, 0, 1, 32], size=(n, c)), axis=0) % 64
+    return grid[idx] * np.float32(4 / m)
+
+
+@pytest.mark.parametrize("kind", ["walk", "grid"])
+@pytest.mark.parametrize("n", [3000, 65536])
+@pytest.mark.parametrize("c", [1, 3, 22])
+@pytest.mark.parametrize("m", [1, 4])
+def test_unwrap_derotate_plain_matches_jnp(kind, m, n, c):
+    """K15's plain twin (whole turns summed as integers) against
+    ``jnp.unwrap(m * phi) / m`` and ``exp(1j * .)`` derotation.
+
+    The turns equal jnp's and those of the float rule (the float32
+    corrections summed in float32, ``unwrap``'s PyTorch ops before K15)
+    exactly.
+    jnp sums its float32 corrections one rounding of the running total a
+    step, so its phases drift from the exact sum by about sqrt(N) such
+    roundings: they are held within 4 sqrt(N) ulps of the largest unwrapped
+    value, over m. The twin's phase is the float64 value phi + (P/m) K
+    rounded once, and its symbols y exp(1j theta) within 1e-6 of |y|."""
+    phi = _unwrap_case(kind, m, n, c)
+    x = np.float32(m) * phi
+    period = np.float32(2 * np.pi)
+    y = noisy_symbols(n + c, n, c, norm_qam(16))
+    phi_t = torch.as_tensor(phi)
+    theta, y_out = tunwrap.unwrap_derotate_plain(phi_t, torch.as_tensor(y), m)
+    turns = tunwrap.turns(theta, phi_t, m)
+    if kind == "grid":
+        assert np.sum(np.diff(x, axis=0) == np.float32(np.pi)) > 0  # the tie rule decides
+        assert np.sum(np.diff(x, axis=0) == -np.float32(np.pi)) > 0
+    ref_x = np.asarray(jnp.unwrap(x, axis=0))
+    np.testing.assert_array_equal(to_np(turns), np.round((ref_x.astype(np.float64) - x) / period))
+    x_t = torch.as_tensor(x)
+    own = x_t[1:] + torch.cumsum(tunwrap.step_corrections(x_t, 0), dim=0)
+    np.testing.assert_array_equal(to_np(turns[1:]),
+                                  to_np(torch.round((own.double() - x_t[1:]) / float(period))))
+    exact = (phi.astype(np.float64) + float(period) / m * to_np(turns)).astype(np.float32)
+    np.testing.assert_array_equal(to_np(theta), exact)
+    ulp = np.spacing(np.float32(np.abs(ref_x).max()))
+    np.testing.assert_allclose(to_np(theta), ref_x / m, rtol=0, atol=4 * np.sqrt(n) * ulp / m)
+    want = y.astype(np.complex128) * np.exp(1j * exact.astype(np.float64))
+    assert np.abs(to_np(y_out) - want).max() <= 1e-6 * np.abs(y).max()
+
+
+@pytest.mark.parametrize("shape,dim,period", [((3000, 3), 0, 2 * np.pi), ((3, 3000), 1, 2 * np.pi),
+                                              ((50, 400, 3), 1, 2 * np.pi),
+                                              ((3000, 2), 0, np.pi / 2), ((5000,), 0, 1.0)])
+def test_unwrap_float64_any_dim_matches_numpy(shape, dim, period):
+    """The CPU route in float64, along any dim and for other periods
+    (Viterbi's pi/2), against ``np.unwrap`` (jnp works in float32 here):
+    turns exactly, phases within 4 sqrt(N) ulps of the largest value."""
+    rng = np.random.default_rng(sum(shape) + dim)
+    p = np.cumsum(rng.normal(scale=0.3 * period, size=shape), axis=dim)
+    wrapped = np.mod(p, period)
+    line = [0] * len(shape)
+    for i, v in enumerate((0.0, period / 2, 0.0)):  # exact half-period steps up and down
+        line[dim] = i
+        wrapped[tuple(line)] = v
+    ref = np.unwrap(wrapped, axis=dim, period=period)
+    out = to_np(tcr.unwrap(torch.as_tensor(wrapped), dim=dim, period=period))
+    assert out.dtype == np.float64
+    np.testing.assert_array_equal(np.round((out - wrapped) / period),
+                                  np.round((ref - wrapped) / period))
+    ulp = np.spacing(np.abs(ref).max())
+    np.testing.assert_allclose(out, ref, rtol=0, atol=4 * np.sqrt(shape[dim]) * ulp)
 
 
 @pytest.mark.parametrize("shape,dim", [((5,), 0), ((1024,), 0), ((1025,), 0),
