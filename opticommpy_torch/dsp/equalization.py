@@ -58,6 +58,7 @@ from opticommpy_torch.models.channels import _manakov_span, _to_columns, fiber_c
 from opticommpy_torch.models.config import SSFMConfig
 from opticommpy_torch.ops.filtering import overlap_save
 from opticommpy_torch.ops.signal import fftfreq
+from opticommpy_torch.utils.profiling import count
 from opticommpy_torch.utils.rng import as_device_tensor, default_device
 
 __all__ = ["edc", "EDCConfig", "manakov_dbp", "mimo_adapt_equalizer", "mimo_adapt_equalizer_batch",
@@ -155,10 +156,13 @@ def manakov_dbp(e_in, config: SSFMConfig):
     then back-propagate with ``+alpha/2 - j*beta2/2*w^2`` and the nonlinear
     rotation negated. Always complex64, whatever ``config.prec`` says, as
     in the JAX package. ``e_in`` is (N, 2*k), columns alternating x/y; a
-    tensor keeps its device, any other input goes to the CUDA device.
+    tensor keeps its device, any other input goes to the CUDA device. Under
+    a profiler it counts ``dbp.calls``, ``dbp.steps``, ``dbp.trap_iters``
+    and ``dbp.host_syncs`` (the channel's ``ssfm.*``, models/channels.py).
     """
     if config.Fs is None:
         raise ValueError("Simulation sampling frequency (Fs) not provided.")
+    count("dbp.calls", 1)
     e_in = as_device_tensor(e_in).to(torch.complex64)
     n = e_in.shape[0]
     e = torch.stack([e_in[:, 0::2].T, e_in[:, 1::2].T]).contiguous()
@@ -171,7 +175,7 @@ def manakov_dbp(e_in, config: SSFMConfig):
     for _ in range(n_spans):
         if config.amp in ("edfa", "ideal"):
             e = e * loss
-        e = _manakov_span(e, lin_arg, config.Lspan, config, nl_sign=-1.0)
+        e = _manakov_span(e, lin_arg, config.Lspan, config, nl_sign=-1.0, counters="dbp")
     return _to_columns(e)
 
 

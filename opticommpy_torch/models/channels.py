@@ -14,6 +14,17 @@ peak nonlinear phase rotation and iterates the trapezoidal correction to
 digital backpropagation (:func:`opticommpy_torch.dsp.equalization.manakov_dbp`)
 runs the same span with ``nl_sign=-1``. ASE noise comes from one
 ``torch.Generator`` whose draws follow each other span by span.
+
+Under a profiler (``utils/profiling``) the solver counts, from host
+integers its loop already holds: ``ssfm.calls`` (one per call of a Manakov
+channel entry point), ``ssfm.steps`` (split steps), ``ssfm.trap_iters``
+(trapezoidal passes run) and ``ssfm.host_syncs`` (the step loop's
+synchronizing reads: each convergence test, which on the adaptive path
+also reads whether another step follows, and with fixed passes the
+adaptive path's ``z < span`` test a step); digital backpropagation counts
+the same as ``dbp.*``.
+Its spans are host-only labels (``ssfm.span`` per span, ``ssfm.amplifier``),
+so a caller's device range around the call keeps all of its kernels.
 """
 
 import math
@@ -27,6 +38,7 @@ from opticommpy_torch.models.config import (AWGNConfig, EDFAConfig, LinearFiberC
 from opticommpy_torch.models.devices import _edfa_gain, edfa
 from opticommpy_torch.ops.noise import gaussian_complex_noise, gaussian_noise
 from opticommpy_torch.ops.signal import fftfreq, sig_pow
+from opticommpy_torch.utils.profiling import count, span
 from opticommpy_torch.utils.rng import as_device_tensor, ensure_generator
 
 __all__ = ["linear_fiber_channel", "ssfm", "manakov_ssf", "nlin_phase_rot",
@@ -176,43 +188,87 @@ def ssfm(e_in, config: SSFMConfig, generator=None):
     return out[:, 0] if squeeze else out
 
 
-def _manakov_step(e, pch, lin_op, hz_, cfg: SSFMConfig, nl_sign=1.0, group=None):
+def _trap_pass(e_conv, e_hd, pch, lin_op, hz_, gamma_, j_sign):
+    """One trapezoidal pass: the half-stepped field ``e_hd`` rotated by the
+    mean of the start-of-step power ``pch`` and the power of the pass's
+    estimate ``e_conv``, through the second linear half-step."""
+    phi = nlin_phase_rot(e_conv[0], e_conv[1], pch, gamma_)
+    return _ifft(_fft(e_hd * torch.exp(j_sign * (phi * hz_))) * lin_op)
+
+
+def _step_start(e, z, span_end, lin_arg, cfg: SSFMConfig, group=None):
+    """The adaptive step's work before its passes (channels.py:392-397):
+    (start-of-step power, step size, linear half-step operator, z after
+    the step). The step size keeps the peak nonlinear phase rotation at
+    ``maxNlinPhaseRot`` and ends the step at the span's end at the latest."""
+    pch = torch.sum(torch.abs(e) ** 2, dim=0)
+    phi_rot = nlin_phase_rot(e[0], e[1], pch, cfg.gamma)
+    phi_max = torch.max(phi_rot)
+    if group is not None:
+        torch.distributed.all_reduce(phi_max, torch.distributed.ReduceOp.MAX, group=group)
+    hz_cand = cfg.maxNlinPhaseRot / phi_max
+    hz_ = torch.minimum(hz_cand, span_end - z)
+    return pch, hz_, torch.exp(lin_arg * (hz_ / 2)), z + hz_
+
+
+def _manakov_step(e, pch, lin_op, hz_, cfg: SSFMConfig, nl_sign=1.0, group=None,
+                  more=None):
     """One symmetric split step with the trapezoidal nonlinear correction.
 
     ``pch`` is the start-of-step power (trapezoid anchor); ``nl_sign`` the
     sign of the nonlinear rotation (``nl_sign * 1j`` is exactly ``1j`` for
     the forward channel, so its rounding is the same as without it);
-    ``group`` as in :func:`_manakov_span`.
+    ``group`` as in :func:`_manakov_span`. Returns the stepped field, the
+    trapezoidal passes run (each a synchronizing read when ``trapIters`` is
+    0) and, where ``more`` (a device bool: does another step follow?) is
+    given and the passes read the device, its value, read with the last
+    pass's convergence number; None otherwise.
     """
     e_hd = _ifft(_fft(e) * lin_op)
     j_sign = nl_sign * 1j
 
     def one_iter(e_conv):
-        phi = nlin_phase_rot(e_conv[0], e_conv[1], pch, cfg.gamma)
-        return _ifft(_fft(e_hd * torch.exp(j_sign * (phi * hz_))) * lin_op)
+        return _trap_pass(e_conv, e_hd, pch, lin_op, hz_, cfg.gamma, j_sign)
 
     if cfg.trapIters > 0:
         e_fd = e
         for _ in range(cfg.trapIters):
             e_fd = one_iter(e_fd)
-        return e_fd
-    e_fd, e_conv, n_it = e_hd, e, 0
+        return e_fd, cfg.trapIters, None
+    e_fd, e_conv, n_it, go_on = e_hd, e, 0, None
     lim = math.inf
     while n_it < cfg.maxIter and lim >= cfg.tol:
         e_fd = one_iter(e_conv)
-        lim = float(convergence_condition(e_fd, e_conv, group))
+        lim = convergence_condition(e_fd, e_conv, group)
+        if more is None:
+            lim = float(lim)
+        else:  # one transfer: the convergence number and whether a step follows
+            lim, go_on = torch.stack([lim, more.to(lim.dtype)]).tolist()
         e_conv = e_fd
         n_it += 1
-    return e_fd
+    return e_fd, n_it, None if go_on is None else bool(go_on)
 
 
-def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0, group=None):
+def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0, group=None,
+                  counters="ssfm"):
     """Propagate the (2, B, N) field through one span; ``nl_sign=-1``
     inverts the nonlinear rotation (digital backpropagation, reference
     equalization.py:976). With a process ``group``, ``e`` is the group
     member's share of a batch split over the group: the adaptive step and
     the trapezoid's convergence test then read the whole batch (a MAX and a
-    SUM all-reduce), so every member steps as the unsplit batch would."""
+    SUM all-reduce), so every member steps as the unsplit batch would.
+    The span's steps, trapezoidal passes and synchronizing reads go to the
+    counters ``<counters>.steps``, ``.trap_iters`` and ``.host_syncs``."""
+    e, steps, iters, syncs = _span_steps(e, lin_arg, span_len, cfg, nl_sign, group)
+    count(counters + ".steps", steps)
+    count(counters + ".trap_iters", iters)
+    count(counters + ".host_syncs", syncs)
+    return e
+
+
+def _span_steps(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign, group):
+    """:func:`_manakov_span`'s propagation: (field, steps, trapezoidal
+    passes, synchronizing reads)."""
     j_sign = nl_sign * 1j
     if not cfg.nlprMethod:
         n_full = int(np.floor(span_len / cfg.hz))
@@ -245,37 +301,130 @@ def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0, group=None
                 ef = fstep_with(ef, cfg.hz, lin_full)
             for k in range(n_uni, len(sizes)):  # <= 2 trailing steps
                 ef = fstep_with(ef, sizes[k], torch.exp(lin_arg * gaps[k]))
-            return _ifft(ef)
+            return _ifft(ef), len(sizes), len(sizes), 0
 
         def step_with(e, hz_, lin_op):
             pch = torch.sum(torch.abs(e) ** 2, dim=0)
-            return _manakov_step(e, pch, lin_op, hz_, cfg, nl_sign, group)
+            return _manakov_step(e, pch, lin_op, hz_, cfg, nl_sign, group)[:2]
 
         n_uni = int(np.sum(sizes == cfg.hz))
         lin_half = torch.exp(lin_arg * (cfg.hz / 2))
+        iters = 0
         for _ in range(n_uni):
-            e = step_with(e, cfg.hz, lin_half)
+            e, n_it = step_with(e, cfg.hz, lin_half)
+            iters += n_it
         for k in range(n_uni, len(sizes)):  # at most the partial final step
-            e = step_with(e, sizes[k], torch.exp(lin_arg * (sizes[k] / 2)))
-        return e
+            e, n_it = step_with(e, sizes[k], torch.exp(lin_arg * (sizes[k] / 2)))
+            iters += n_it
+        return e, len(sizes), iters, 0 if cfg.trapIters > 0 else iters
 
     # adaptive step size (channels.py:392-397); z and the step size are
-    # carried in the field's real dtype, as the JAX package carries them
+    # carried in the field's real dtype, as the JAX package carries them.
+    # Whether another step follows (z < span) is read with the step's last
+    # convergence number, so a step iterated to tol reads the device once a
+    # pass; the first test, 0 < span, is the host's. On a CUDA field in one
+    # process the loop replays CUDA graphs of the same work (_StepGraphs).
+    if _use_graphs(e, cfg, group):
+        return _span_steps_graphed(e, lin_arg, span_len, cfg, nl_sign)
     real_dtype = e.real.dtype
     z = torch.zeros((), dtype=real_dtype, device=e.device)
-    span = torch.tensor(span_len, dtype=real_dtype, device=e.device)
-    while bool(z < span):
-        pch = torch.sum(torch.abs(e) ** 2, dim=0)
-        phi_rot = nlin_phase_rot(e[0], e[1], pch, cfg.gamma)
-        phi_max = torch.max(phi_rot)
-        if group is not None:
-            torch.distributed.all_reduce(phi_max, torch.distributed.ReduceOp.MAX, group=group)
-        hz_cand = cfg.maxNlinPhaseRot / phi_max
-        hz_ = torch.minimum(hz_cand, span - z)
-        lin_op = torch.exp(lin_arg * (hz_ / 2))
-        e = _manakov_step(e, pch, lin_op, hz_, cfg, nl_sign, group)
-        z = z + hz_
-    return e
+    span_end = torch.tensor(span_len, dtype=real_dtype, device=e.device)
+    steps = iters = syncs = 0
+    go_on = span_len > 0
+    while go_on:
+        pch, hz_, lin_op, z = _step_start(e, z, span_end, lin_arg, cfg, group)
+        e, n_it, go_on = _manakov_step(e, pch, lin_op, hz_, cfg, nl_sign, group, z < span_end)
+        if go_on is None:  # fixed passes: read z < span alone
+            go_on = bool(z < span_end)
+            syncs += 1
+        steps += 1
+        iters += n_it
+    return e, steps, iters, syncs + (0 if cfg.trapIters > 0 else iters)
+
+
+def _use_graphs(e, cfg: SSFMConfig, group):
+    """Whether the adaptive loop replays CUDA graphs: a CUDA field in one
+    process, the trapezoid iterated to ``tol``."""
+    return e.is_cuda and group is None and cfg.trapIters == 0 and cfg.maxIter > 0
+
+
+class _StepGraphs:
+    """The adaptive step loop's device work as two CUDA graphs on static
+    buffers, for one field shape and solver: ``start`` (the step size, the
+    half-stepped field, z after the step and whether another step follows)
+    and ``one_pass`` (a trapezoidal pass; its convergence number with
+    whether another step follows; the pass's field written over the
+    field). A replay runs the eager loop's kernels on the same values, so
+    fields and counts are the same bits, with one launch where the eager
+    loop launches 20-25 kernels: the card, not the host, paces the loop."""
+
+    def __init__(self, e, lin_arg, cfg: SSFMConfig, nl_sign):
+        self.e, self.lin_arg = e.clone(), lin_arg.clone()
+        self.z = torch.zeros((), dtype=e.real.dtype, device=e.device)
+        self.span_end = torch.ones_like(self.z)
+        j_sign = nl_sign * 1j
+
+        def start():
+            pch, hz_, lin_op, z = _step_start(self.e, self.z, self.span_end, self.lin_arg, cfg)
+            self.z.copy_(z)
+            return pch, hz_, lin_op, _ifft(_fft(self.e) * lin_op), z < self.span_end
+
+        def one_pass():
+            e_fd = _trap_pass(self.e, self.e_hd, self.pch, self.lin_op, self.hz, cfg.gamma,
+                              j_sign)
+            lim = convergence_condition(e_fd, self.e)
+            out = torch.stack([lim, self.more.to(lim.dtype)])
+            self.e.copy_(e_fd)
+            return out
+
+        stream = torch.cuda.current_stream(e.device)
+        side = torch.cuda.Stream(e.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):  # cuFFT plans and the allocator's blocks
+            self.pch, self.hz, self.lin_op, self.e_hd, self.more = start()
+            one_pass()
+        stream.wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        self.start, self.one_pass = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.start, pool=pool):
+            self.pch, self.hz, self.lin_op, self.e_hd, self.more = start()
+        with torch.cuda.graph(self.one_pass, pool=pool):
+            self.out = one_pass()
+
+
+_GRAPHS = {}
+
+
+def _step_graphs(e, lin_arg, cfg: SSFMConfig, nl_sign):
+    """The :class:`_StepGraphs` of this field shape and solver, captured on
+    first use; the last four kept."""
+    key = (e.device, tuple(e.shape), e.dtype, float(nl_sign), cfg.gamma, cfg.maxNlinPhaseRot)
+    if key not in _GRAPHS:
+        if len(_GRAPHS) >= 4:
+            _GRAPHS.pop(next(iter(_GRAPHS)))
+        _GRAPHS[key] = _StepGraphs(e, lin_arg, cfg, nl_sign)
+    return _GRAPHS[key]
+
+
+def _span_steps_graphed(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign):
+    """:func:`_span_steps`'s adaptive loop by :class:`_StepGraphs`: the same
+    steps, passes and reads (one a pass)."""
+    g = _step_graphs(e, lin_arg, cfg, nl_sign)
+    g.e.copy_(e)
+    g.lin_arg.copy_(lin_arg)
+    g.z.zero_()
+    g.span_end.fill_(span_len)
+    steps = iters = 0
+    go_on = span_len > 0
+    while go_on:
+        g.start.replay()
+        n_it, lim = 0, math.inf
+        while n_it < cfg.maxIter and lim >= cfg.tol:
+            g.one_pass.replay()
+            lim, go_on = g.out.tolist()
+            n_it += 1
+        steps, iters = steps + 1, iters + n_it
+    return g.e.clone(), steps, iters, iters
 
 
 def _to_columns(e):
@@ -302,6 +451,7 @@ def manakov_ssf(e_in, config: SSFMConfig, generator=None, save_all_spans=False):
     -------
     (N, 2*k) output field, or (output, per_span_fields) if save_all_spans.
     """
+    count("ssfm.calls", 1)
     e = _to_pol_stacked(e_in, config)
     span_fields = []
     for e in _manakov_spans(e, config, generator):
@@ -364,8 +514,10 @@ def _manakov_spans(e, config: SSFMConfig, generator, group=None, batch=None):
     if config.amp == "edfa":
         generator = ensure_generator(generator, e.device)
     for _ in range(n_spans):
-        e = _manakov_span(e, lin_arg, config.Lspan, config, group=group)
-        e = _amplify(e, config, generator, batch)
+        with span("ssfm.span", device=False):
+            e = _manakov_span(e, lin_arg, config.Lspan, config, group=group)
+        with span("ssfm.amplifier", device=False):
+            e = _amplify(e, config, generator, batch)
         yield e
 
 

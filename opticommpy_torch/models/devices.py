@@ -29,8 +29,8 @@ from opticommpy_torch.models.config import (
 from opticommpy_torch.ops.filtering import fir_filter, lowpass_fir
 from opticommpy_torch.ops.modulator import calc_mzm, calc_pm
 from opticommpy_torch.ops.noise import gaussian_complex_noise, gaussian_noise, phase_noise
-from opticommpy_torch.ops.signal import (clock_sampling_interp, delay_signal, iq_mixing,
-                                         quantizer)
+from opticommpy_torch.ops.signal import (carrier_phase, clock_sampling_interp, delay_signal,
+                                         iq_mixing, quantizer)
 from opticommpy_torch.utils.rng import as_device_tensor, ensure_generator
 from opticommpy_torch.utils.units import dbm2w
 
@@ -261,8 +261,8 @@ def basic_laser_model(config: LaserConfig = None, generator=None, device=None):
     pn = phase_noise(generator, config.lw, config.Ns, 1 / config.Fs)
     delta_p = gaussian_complex_noise(generator, pn.shape, config.RIN_var)
     if config.freqShift != 0:
-        k = torch.arange(config.Ns, dtype=torch.float32, device=pn.device)
-        fo = 2 * math.pi * config.freqShift * k / config.Fs
+        # exact to one float32 rounding; the JAX package's float32 ramp is not
+        fo = carrier_phase(config.Ns, config.freqShift, config.Fs, pn.device)
     else:
         fo = 0.0
     return torch.sqrt(dbm2w(config.P) + delta_p) * torch.exp(1j * (fo + pn))

@@ -21,7 +21,7 @@ from opticommpy_torch.models.config import IQMConfig, MZMConfig
 from opticommpy_torch.models.devices import iqm, mzm
 from opticommpy_torch.ops.filtering import fir_filter, pulse_shape
 from opticommpy_torch.ops.noise import phase_noise
-from opticommpy_torch.ops.signal import signal_power, upsample
+from opticommpy_torch.ops.signal import carrier_phase, signal_power, upsample
 from opticommpy_torch.utils.rng import as_device_tensor, ensure_generator
 from opticommpy_torch.utils.units import dbm2w
 
@@ -161,10 +161,9 @@ def wdm_tx_build(symbols, pn, config: WDMTxConfig = WDMTxConfig()):
     sig_ch = sig_ch / torch.sqrt(power)
     sig_ch = sig_ch * torch.sqrt(p_ch_w[:, None, None] / n_pol)
 
-    # carrier phase 2*pi*f*t in float32, as the JAX package computes it
-    t = torch.arange(n_samples, dtype=torch.float32, device=dev) / cfg.Fs
-    fg = torch.as_tensor(freq_grid.astype(np.float32), device=dev)
-    shift = torch.exp(1j * ((2 * math.pi * fg)[:, None] * t[None, :]))
+    # exact carrier phases (ops.signal.carrier_phase); the JAX package forms
+    # 2*pi*f*t in float32, which keeps ~0.25 rad at +-187.5 GHz over 2^20 samples
+    shift = torch.exp(1j * carrier_phase(n_samples, freq_grid, cfg.Fs, dev))
     sig_wdm = torch.sum(sig_ch * shift[:, None, :], dim=0).T  # (nSamples, nPol)
     return sig_wdm, symbols.permute(2, 1, 0), freq_grid
 

@@ -31,6 +31,7 @@ __all__ = [
     "delay_signal",
     "iq_mixing",
     "freq_shift",
+    "carrier_phase",
 ]
 
 
@@ -387,6 +388,19 @@ def iq_mixing(sig, fs, amp_imb_db=0.0, phase_imb=0.0, time_skew=0.0):
     s_i = delay_signal(mixed.real, -delay, fs)
     s_q = delay_signal(mixed.imag, delay, fs)
     return torch.complex(s_i, s_q)
+
+
+def carrier_phase(n, freq, fs, device=None):
+    """The phase ``2*pi*freq*k/fs`` of a carrier at the samples ``k < n``,
+    exact to one float32 rounding: the turns ``k*freq/fs`` are reduced to
+    [-1/2, 1/2] in float64, multiplied by ``2*pi`` and rounded once to
+    float32. (A float32 ramp ``2*pi*freq*t`` reaches ~2.4e6 rad over 2^20
+    samples at 187.5 GHz and keeps ~0.25 rad of it.) ``freq`` is a number,
+    giving (n,), or a sequence of frequencies, giving (len(freq), n)."""
+    f = torch.as_tensor(np.asarray(freq, dtype=np.float64) / fs, device=device)
+    k = torch.arange(n, dtype=torch.float64, device=device)
+    turns = f[..., None] * k
+    return ((2 * math.pi) * (turns - torch.round(turns))).to(torch.float32)
 
 
 def freq_shift(x, delta_f, fs):

@@ -39,6 +39,7 @@ from opticommpy_torch.models.channels import (_amplify, _lin_arg, _manakov_span,
                                               fiber_coefficients)
 from opticommpy_torch.ops.filtering import _as_tensor, _fft_conv_same
 from opticommpy_torch.parallel.mesh import NamedSharding, P
+from opticommpy_torch.utils.profiling import count
 from opticommpy_torch.utils.rng import as_device_tensor, ensure_generator
 
 __all__ = [
@@ -283,6 +284,7 @@ def manakov_ssf_dp(e_in, config, generator, mesh, data_axis="data"):
     passes in the same state) and adds its own signals' share: the result
     is :func:`~opticommpy_torch.models.channels.manakov_ssf`'s.
     """
+    count("ssfm.calls", 1)
     e = _to_pol_stacked(e_in, config)
     a = _axis(mesh, data_axis)
     k = e.shape[1]
@@ -322,6 +324,7 @@ def manakov_ssf_pp(e_in, config, generator, mesh, stage_axis="stage", n_microbat
     -------
     (N, 2*k) output field on every rank, microbatches in input order.
     """
+    count("ssfm.calls", 1)
     e = _to_pol_stacked(e_in, config)
     a = _axis(mesh, stage_axis)
     n_stages, stage = a.size, a.index
@@ -434,6 +437,7 @@ def manakov_ssf_sp(e_in, config, generator=None, mesh=None, time_axis="time",
         raise ValueError("Simulation sampling frequency (Fs) not provided.")
     if mesh is None:
         raise ValueError("manakov_ssf_sp requires a mesh")
+    count("ssfm.calls", 1)
     t = _axis(mesh, time_axis)
     e = _to_pol_stacked(e_in, config)
     n = e.shape[-1]

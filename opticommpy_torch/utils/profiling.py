@@ -17,9 +17,13 @@
 Spans (``*``: host only, ``device=False``): ``rx.front_end`` (children
 ``rx.front_end.filter*``, ``rx.front_end.edc*``, ``rx.front_end.foe*``,
 opened once per signal), ``rx.equalizer``, ``rx.bps`` and ``rx.unwrap`` in
-:func:`~opticommpy_torch.pipelines.coherent_dsp_chain_batch`. Counters,
-added by :func:`~opticommpy_torch.comm.fec.decode_ldpc`: ``fec.codewords``
-and ``fec.codeword_iters`` (the iterations each codeword ran, summed).
+:func:`~opticommpy_torch.pipelines.coherent_dsp_chain_batch`; ``ssfm.span*``
+and ``ssfm.amplifier*`` per span of the Manakov solver. Counters, added by
+:func:`~opticommpy_torch.comm.fec.decode_ldpc`: ``fec.codewords`` and
+``fec.codeword_iters`` (the iterations each codeword ran, summed); by the
+Manakov solver (:func:`~opticommpy_torch.models.channels.manakov_ssf`):
+``ssfm.calls``, ``ssfm.steps``, ``ssfm.trap_iters`` and ``ssfm.host_syncs``
+(``dbp.*`` in digital backpropagation).
 """
 
 import os

@@ -1,7 +1,9 @@
 """The port's own spans and counters (opticommpy_torch.utils.profiling):
 nothing is recorded without a profiler; under ``torch.profiler`` the
-receiver chain opens its ``pb.<name>`` ranges, nested as documented, and
-the LDPC decoder counts its codewords and the iterations they ran."""
+receiver chain opens its ``pb.<name>`` ranges, nested as documented, the
+LDPC decoder counts its codewords and the iterations they ran, and the
+Manakov solver counts its calls, steps, trapezoidal passes and
+synchronizing reads and labels its spans for the host only."""
 
 import json
 
@@ -14,6 +16,7 @@ torch.set_num_threads(1)
 
 from opticommpy_torch.comm.fec import LDPCConfig, decode_ldpc, standard_ldpc  # noqa: E402
 from opticommpy_torch.comm.fec_qc import make_qc_decoder  # noqa: E402
+from opticommpy_torch.models import SSFMConfig, manakov_ssf  # noqa: E402
 from opticommpy_torch.pipelines import CoherentDSPConfig, coherent_dsp_chain_batch  # noqa: E402
 from opticommpy_torch.utils import profiling  # noqa: E402
 
@@ -129,3 +132,66 @@ def test_trace_writes_the_spans_into_its_chrome_trace(tmp_path, chain):
     names = {e.get("name") for e in events}
     for name in RX_STAGES + FRONT_CHILDREN:
         assert profiling.SPAN_PREFIX + name in names
+
+
+SSFM_COUNTERS = ("ssfm.calls", "ssfm.steps", "ssfm.trap_iters", "ssfm.host_syncs")
+SOLVERS = {  # 2 spans of 50 km; the fixed paths take 25 steps a span
+    "adaptive": dict(nlprMethod=True, trapIters=0),
+    "adaptive, two passes": dict(nlprMethod=True, trapIters=2),
+    "fixed, fused": dict(nlprMethod=False, hz=2.0, trapIters=1, fusedLinear=True),
+    "fixed, iterated": dict(nlprMethod=False, hz=2.0, trapIters=0),
+    "fixed, two passes": dict(nlprMethod=False, hz=2.0, trapIters=2),
+}
+
+
+def _ssfm(**kw):
+    rng = np.random.default_rng(4)
+    x = 0.05 * (rng.standard_normal((2**10, 2)) + 1j * rng.standard_normal((2**10, 2)))
+    cfg = SSFMConfig(Ltotal=100, Lspan=50, alpha=0.2, D=16, gamma=1.3, Fs=256e9, amp="ideal",
+                     **kw)
+    return torch.from_numpy(x.astype(np.complex64)), cfg
+
+
+def _ssfm_counts(before, after):
+    return {k: after.get(k, 0.0) - before.get(k, 0.0) for k in SSFM_COUNTERS}
+
+
+@pytest.mark.parametrize("solver", sorted(SOLVERS))
+def test_manakov_ssf_counts_steps_passes_and_syncs(solver):
+    x, cfg = _ssfm(**SOLVERS[solver])
+    before = profiling.counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        manakov_ssf(x, cfg)
+    c = _ssfm_counts(before, profiling.counts())
+    spans = 2
+    assert c["ssfm.calls"] == 1
+    if cfg.nlprMethod and not cfg.trapIters:
+        assert c["ssfm.steps"] > spans and c["ssfm.trap_iters"] >= c["ssfm.steps"]
+        # one read a pass: its convergence number and whether a step follows
+        assert c["ssfm.host_syncs"] == c["ssfm.trap_iters"]
+    elif cfg.nlprMethod:
+        assert c["ssfm.trap_iters"] == cfg.trapIters * c["ssfm.steps"]
+        assert c["ssfm.host_syncs"] == c["ssfm.steps"]  # whether a step follows, a step
+    else:
+        assert c["ssfm.steps"] == spans * 25
+        if cfg.trapIters:
+            assert c["ssfm.trap_iters"] == cfg.trapIters * c["ssfm.steps"]
+            assert c["ssfm.host_syncs"] == 0
+        else:
+            assert c["ssfm.trap_iters"] >= c["ssfm.steps"]
+            assert c["ssfm.host_syncs"] == c["ssfm.trap_iters"]
+    # host-only labels: a caller's device range keeps every kernel of the call
+    r = _ranges(prof)
+    assert {k for k in r if k.startswith("ssfm")} == {"ssfm.span", "ssfm.amplifier"}
+    for name in ("ssfm.span", "ssfm.amplifier"):
+        assert len(r[name]) == spans and _device(r[name]) == {False}
+
+
+def test_manakov_ssf_without_a_profiler_counts_nothing():
+    x, cfg = _ssfm(**SOLVERS["adaptive"])
+    before = profiling.counts()
+    out = manakov_ssf(x, cfg)
+    assert profiling.counts() == before
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = manakov_ssf(x, cfg)
+    assert torch.equal(out, traced)  # counting leaves the arithmetic alone

@@ -1,7 +1,8 @@
 """The port's WDM transmitter, Manakov channel and EDFA against opticommpy_tpu.
 
-Tolerances: Tx relative error <= 1e-4 (float32 carrier phase and FFT
-rounding); channel relative error <= 1e-4 in complex64 and <= 1e-9 in
+Tolerances: Tx relative error <= 1e-4 against the JAX package's channels
+shifted by exact carrier ramps (FFT rounding; the JAX package's float32
+ramps are shown beside it); channel relative error <= 1e-4 in complex64 and <= 1e-9 in
 complex128 (rounding accumulated over the split steps).
 """
 
@@ -24,12 +25,21 @@ from opticommpy_torch.models import tx as ttx  # noqa: E402
 
 from _torch_parity import rel_err, to_np  # noqa: E402
 
+# the JAX package's Tx against exact carrier ramps at 3 channels, 16,384
+# samples, +-37.5 GHz: its float32 ramps give 1.23e-4
+JAX_RAMP_GAP = 1.5e-4
+
 
 def test_simple_wdm_tx_matches_jax():
-    cfg = jtx.WDMTxConfig(M=16, Rs=32e9, SpS=16, nBits=4096, nChannels=3,
-                          nPolModes=2, nFilterTaps=256, pulseRollOff=0.01,
-                          powerPerChannel=(-2.0, 0.0, 1.0), wdmGridSpacing=37.5e9,
-                          laserLinewidth=0.0)
+    """The port's Tx is the JAX package's with exact carrier ramps. The JAX
+    package forms ``2 pi f t`` in float32 (opticommpy_tpu/models/tx.py:167),
+    so the port is held to the JAX package's channels, each built alone at
+    f = 0 (no ramp) and shifted by float64 ramps; the JAX package's own
+    gap to that is shown beside it."""
+    kw = dict(M=16, Rs=32e9, SpS=16, nBits=4096, nChannels=3, nPolModes=2, nFilterTaps=256,
+              pulseRollOff=0.01, laserLinewidth=0.0)
+    power = (-2.0, 0.0, 1.0)
+    cfg = jtx.WDMTxConfig(powerPerChannel=power, wdmGridSpacing=37.5e9, **kw)
     sig_j, symb_j, grid_j = jtx.simple_wdm_tx(3, cfg)
     symbols = torch.as_tensor(np.array(symb_j)).permute(2, 1, 0)
     pn = torch.zeros((cfg.nChannels, cfg.nSymbols * cfg.SpS))
@@ -37,7 +47,18 @@ def test_simple_wdm_tx_matches_jax():
     np.testing.assert_array_equal(grid_t, grid_j)
     np.testing.assert_array_equal(to_np(symb_t), np.asarray(symb_j))
     assert sig_t.shape == sig_j.shape and sig_t.dtype == torch.complex64
-    assert rel_err(sig_t, sig_j) <= 1e-4
+    k = np.arange(sig_t.shape[0])
+    exact = 0
+    for ch, f in enumerate(grid_j):
+        alone = tuple(p if c == ch else -np.inf for c, p in enumerate(power))
+        s_ch, _, _ = jtx.simple_wdm_tx(3, jtx.WDMTxConfig(powerPerChannel=alone,
+                                                          wdmGridSpacing=0.0, **kw))
+        turns = k * (f / cfg.Fs)
+        exact = exact + np.asarray(s_ch) * np.exp(2j * np.pi * (turns - np.round(turns)))[:, None]
+    assert rel_err(sig_t, exact) <= 1e-4
+    # the JAX package's float32 ramps: 1.23e-4 here, ~220x the port's 5.6e-7
+    assert rel_err(sig_j, exact) > 100 * rel_err(sig_t, exact)
+    assert rel_err(sig_t, sig_j) <= JAX_RAMP_GAP
 
 
 def test_simple_wdm_tx_draws():
