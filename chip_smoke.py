@@ -17,7 +17,10 @@ Phases:
    2^32 float32 inputs per grid; K15, the unwrap with the derotation fused
    in, against its plain twin (turns and phases bit for bit) at the batch
    chain's and path C's 65,536 x 22, the chain's 65,536 x 2 and small cases
-   (``UNWRAP_CASES``), timed beside today's PyTorch ops; K2, the MIMO
+   (``UNWRAP_CASES``), timed beside today's PyTorch ops; K16, the adaptive
+   Manakov step's start and trapezoidal pass, against its plain twin (the
+   solver's PyTorch ops on the card) on the link's (2, 1, 2^20) field,
+   timed beside those ops; K2, the MIMO
    equalizer, for each of its five rules at 4,096 symbols, 2x2, 15 taps,
    and at the main path's first training pass (12,000 symbols, da-rde); K3, the batched equalizer, for
    the five rules at B=3 x 4,096 symbols, bit-identical per signal to K2,
@@ -220,7 +223,10 @@ Phases:
    filter, decimation to 2 SpS, ``edc`` over 150 km, ``symbol_sync``,
    ``mimo_adapt_equalizer`` (da-rde / dd-lms, 15 taps, mu (5e-3, 2e-3),
    2,000 training symbols, numIter 2) and ``cpr`` BPS (N 35, B 64): K2 3
-   launches and K1 1 required; every span's gain within tolCtrl of 10 dB;
+   launches and K1 1 required, and the adaptive spans on K16 (its launches,
+   CUDA graph replays counted, 2 a step and 3 a pass of the solver's own
+   counters, read under a CPU profiler around ``manakov_ssf``); every span's
+   gain within tolCtrl of 10 dB;
    BER <= 2 x JAX + 1e-4 and GMI >= JAX - 0.05 per polarization (numbers
    from ``tools/jax_edfa_link_reference.py``); the ASE draw's variance per
    bin within 2% of noise_amp**2; ``edfa_sm`` on a 2**16-sample prefix of
@@ -255,7 +261,9 @@ Phases:
    card; world sizes 2 and 4 run on gloo in the CPU tests): NCCL start-up
    and an all-reduce; the main path's Tx field through ``manakov_ssf_dp``
    on a (1, 1) mesh with EDFAs and the main path's generator seed, bit for
-   bit against ``manakov_ssf``; ``manakov_ssf_pp`` (one stage, M = 1) and
+   bit against ``manakov_ssf``; an adaptive span with the world group (K16's
+   sums and maximum all-reduced) bit for bit against the span without one;
+   ``manakov_ssf_pp`` (one stage, M = 1) and
    ``manakov_ssf_sp`` (default halo) with ideal gain, within PP_REL and
    SP_REL of ``manakov_ssf`` (sp propagates a longer block with a cyclic
    halo, so it is held to its halo bound, not bit for bit), and with EDFAs,
@@ -268,7 +276,7 @@ Phases:
    over the ``data`` dim, bit for bit with the unsharded call and the same
    launches (K11 1, K3 3); ``dryrun_multichip(1)``; every stage's
    host-clock time beside the card's name and power limit.
-20. the time of every phase; then the kernels JSON line (K1-K15, each with
+20. the time of every phase; then the kernels JSON line (K1-K16, each with
    its bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s;
    K1 and K2 also with their path I, L and M launches, K1 with phase K's,
    K3 and K11 with phase O's), and last the ``{"ok": true, "device": ...}``
@@ -1035,11 +1043,143 @@ def phase_unwrap_kernel(dev, rng):
     return report
 
 
+SSFM_PASS_FIELD = (2, 1, 2**20)  # the link's field: 2 polarizations of 2^20 samples
+
+
+def _ssfm_pass_cost(b, n):
+    """(bytes, flops) of K16 on a (2, b, n) complex64 field, per sample of
+    both polarizations: a pass reads e_conv and e_hd (32 bytes) and pch (4)
+    and writes the rotated field (16), reads and writes the spectrum (32)
+    with lin_op once (8 a column), reads e_fd and e_conv (32) and writes the
+    field (16); a step's start reads the field (16), writes pch (4), reads
+    lin_arg and writes lin_op (16 a column) and reads and writes the
+    spectrum (32). ~120 float operations a sample in a pass (sincosf ~20,
+    four hypotf), ~30 in a step's start."""
+    m = b * n
+    return (132 * m + 8 * n, 120 * m), (52 * m + 16 * n, 30 * m)
+
+
+def phase_ssfm_pass_kernel(dev):
+    """K16 on the link's (2, 1, 2^20) field against its plain twin, the
+    PyTorch ops of the solver's CPU route run on the card: a step's start
+    (power, FFT, lin forming lin_op, unnormalized inverse FFT) and a
+    trapezoidal pass (rotate, FFT, lin, unnormalized inverse FFT, converge
+    writing the field), the fields and the convergence number within 1e-6
+    relative, two runs bit-identical, 2 and 3 launches; their device time
+    by torch.profiler (K16's kernels alone, and the PyTorch ops' kernels
+    other than cuFFT's) and their time with cuFFT by CUDA events, beside
+    the byte bound at 3.35 TB/s."""
+    from opticommpy_torch.kernels import ssfm_pass
+    from opticommpy_torch.models import SSFMConfig
+    from opticommpy_torch.models import channels as tch
+
+    _, b, n = SSFM_PASS_FIELD
+    g = torch.Generator(device=dev).manual_seed(16)
+    e = torch.complex(torch.randn(SSFM_PASS_FIELD, generator=g, device=dev),
+                      torch.randn(SSFM_PASS_FIELD, generator=g, device=dev)) * 0.06
+    cfg = SSFMConfig(Ltotal=50, Lspan=50, alpha=0.2, D=16, gamma=1.3, Fs=512e9,
+                     nlprMethod=True, maxNlinPhaseRot=2e-2)
+    lin_arg = tch._lin_arg(n, cfg, e.dtype, dev)
+    span_end = torch.full((), 50.0, device=dev)
+    z, status = torch.zeros((), device=dev), torch.zeros(2, device=dev)
+
+    def k16_start():
+        z.zero_()
+        return tch._step_start(e, z, span_end, lin_arg, cfg, status)
+
+    pch, hz, lin_op, e_hd = k16_start()
+    conv = e.clone()
+
+    def k16_pass():  # as a graph's pass: the field written over its estimate
+        e_fd = tch._trap_pass(conv, e_hd, pch, lin_op, hz, cfg.gamma, 1.0)
+        tch._converge(e_fd, conv, status, write=True)
+        return e_fd
+
+    def plain_start():
+        pch_p, phi_max = tch._power_plain(e, cfg.gamma)
+        hz_p = torch.minimum(cfg.maxNlinPhaseRot / phi_max, span_end - 0.0)
+        lin_p = torch.exp(lin_arg * (hz_p / 2))
+        return pch_p, hz_p, lin_p, tch._ifft(tch._fft(e) * lin_p)
+
+    def plain_pass():
+        e_fd = tch._ifft(tch._fft(tch._rotate_plain(e, e_hd, pch, hz, cfg.gamma, 1.0)) * lin_op)
+        num, den = tch._converge_sums_plain(e_fd, e)
+        lim = torch.stack([torch.sqrt(num) / torch.sqrt(den), status[1]])
+        conv.copy_(e_fd)
+        return e_fd, lim
+
+    before = ssfm_pass.launches
+    e_fd = k16_pass()
+    lim = status[0].item()
+    n_pass = ssfm_pass.launches - before
+    conv.copy_(e)
+    again = k16_pass()
+    repeat = bool(torch.equal(e_fd, again)) and status[0].item() == lim
+    before = ssfm_pass.launches
+    start2 = k16_start()
+    n_start = ssfm_pass.launches - before
+    repeat = repeat and all(bool(torch.equal(u, v)) for u, v in zip((pch, hz, lin_op, e_hd),
+                                                                     start2))
+    want_start = plain_start()
+    want_fd, want_lim = plain_pass()
+    torch.cuda.synchronize()
+    rel = lambda a, w: float(torch.linalg.vector_norm(a - w) / torch.linalg.vector_norm(w))  # noqa: E731
+    errs = dict(pch=rel(pch, want_start[0]), hz=rel(hz, want_start[1]),
+                lin_op=rel(lin_op, want_start[2]), e_hd=rel(e_hd, want_start[3]),
+                e_fd=rel(e_fd, want_fd), lim=abs(lim - want_lim[0].item()) / want_lim[0].item())
+    k16_names = ("power_kernel", "lin_kernel", "rotate_kernel", "converge_kernel")
+
+    def device_ms(fn, keep, reps=50):
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        mine = [ev for ev in prof.events() if ev.device_type.name == "CUDA" and keep(ev.name)]
+        return sum(ev.self_device_time_total for ev in mine) / reps / 1e3, len(mine) / reps
+
+    is_k16 = lambda name: any(k in name for k in k16_names)  # noqa: E731
+    not_fft = lambda name: "fft" not in name.lower()  # noqa: E731
+    (pass_bytes, pass_flops), (start_bytes, start_flops) = _ssfm_pass_cost(b, n)
+    entry = dict(max_abs_err=max(errs.values()), errs=errs, bit_identical=repeat,
+                 launches_per_pass=n_pass, launches_per_step_start=n_start)
+    entry["ms"], _ = device_ms(k16_pass, is_k16)
+    entry["device_ms"] = entry["ms"]
+    entry["start_ms"], _ = device_ms(k16_start, is_k16)
+    entry["plain_ms"], entry["plain_kernels"] = device_ms(plain_pass, not_fft)
+    entry["plain_start_ms"], entry["plain_start_kernels"] = device_ms(plain_start, not_fft)
+    entry["pass_with_fft_ms"] = _cuda_ms(k16_pass, 50)
+    entry["plain_pass_with_fft_ms"] = _cuda_ms(plain_pass, 50)
+    entry["start_with_fft_ms"] = _cuda_ms(k16_start, 50)
+    entry["plain_start_with_fft_ms"] = _cuda_ms(plain_start, 50)
+    _with_bound(entry, pass_bytes, pass_flops)
+    entry["start_bound_ms"], _ = _bound(start_bytes, start_flops)
+    print(f"K16 ssfm_pass {SSFM_PASS_FIELD}: errs {errs}, two runs bit-identical {repeat}, "
+          f"launches {n_pass} a pass, {n_start} a step's start; pass: K16 "
+          f"{entry['ms']:.4f} ms of device time, the PyTorch ops' non-FFT kernels "
+          f"{entry['plain_ms']:.4f} ms in {entry['plain_kernels']:.0f}, with cuFFT "
+          f"{entry['pass_with_fft_ms']:.4f} / {entry['plain_pass_with_fft_ms']:.4f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}, "
+          f"{entry['bound_ms'] / entry['ms']:.1%}); step's start: K16 {entry['start_ms']:.4f} "
+          f"ms, PyTorch {entry['plain_start_ms']:.4f} ms in "
+          f"{entry['plain_start_kernels']:.0f}, with cuFFT {entry['start_with_fft_ms']:.4f} / "
+          f"{entry['plain_start_with_fft_ms']:.4f} ms, bound {entry['start_bound_ms']:.4f} ms "
+          f"({_smi()})")
+    _check(max(errs.values()) <= 1e-6 and repeat and n_pass == 3 and n_start == 2,
+           "K16 disagrees with its plain twin, differs between runs or launched other than "
+           "3 kernels a pass and 2 a step's start")
+    return entry
+
+
 def phase_kernels_vs_plain(dev, const):
     from opticommpy_torch.kernels import mimo_eq
 
     report = {"bps": phase_bps_kernel(dev, np.random.default_rng(1))}
     report["unwrap"] = phase_unwrap_kernel(dev, np.random.default_rng(15))
+    report["ssfm_pass"] = phase_ssfm_pass_kernel(dev)
 
     # K2: the adaptive equalizer recurrence, each rule
     def polmux(n_sym, seed):
@@ -3451,21 +3591,28 @@ def run_edfa_path_l(dev, n_bits=2**18, n_channels=11, n_train=2000):
     before and read just after."""
     from unittest import mock
 
+    from torch.profiler import ProfilerActivity, profile
+
     from opticommpy_torch.comm.metrics import fast_ber_calc, monte_carlo_gmi
+    from opticommpy_torch.kernels import ssfm_pass
     from opticommpy_torch.models import LaserConfig, basic_laser_model, manakov_ssf
     from opticommpy_torch.models import amplification as amp
     from opticommpy_torch.models.tx import simple_wdm_tx
+    from opticommpy_torch.utils import profiling
 
     smi = _smi()
     cfg_tx, cfg_span, cfg_edfa = edfa_link_configs(n_bits, n_channels)
     fs = cfg_tx.Fs
     failures, spans = [], []
     _reset_counts()
+    profiling.reset_counts()
+    k16_before = ssfm_pass.launches
     gen = torch.Generator(device=dev).manual_seed(11)
     sig, symb_tx, grid = simple_wdm_tx(gen, cfg_tx)
     span_in = None
     for n in range(3):
-        sig_in, ssfm_s = _wall(lambda: manakov_ssf(sig, cfg_span))
+        with profile(activities=[ProfilerActivity.CPU]):  # the solver's step and pass counters
+            sig_in, ssfm_s = _wall(lambda: manakov_ssf(sig, cfg_span))
         (out, pump_f, _, noise_amp), host_s, dev_s = _timed_edfa(sig_in, fs, cfg_edfa, gen)
         _check(out.is_cuda and pump_f.is_cuda and noise_amp.is_cuda,
                "path L: edfa_sm returned a tensor off the card")
@@ -3491,9 +3638,16 @@ def run_edfa_path_l(dev, n_bits=2**18, n_channels=11, n_train=2000):
                                                     n_train, gen))
     torch.cuda.synchronize()
     counts = _counts()
-    print(f"path L launches: {counts}")
+    k16 = ssfm_pass.launches - k16_before
+    solver = profiling.counts()
+    steps, passes = solver.get("ssfm.steps", 0.0), solver.get("ssfm.trap_iters", 0.0)
+    print(f"path L launches: {counts}, K16 {k16} (replays counted; the solver's {steps:.0f} "
+          f"steps and {passes:.0f} passes: 2 x steps + 3 x passes = {2 * steps + 3 * passes:.0f})")
     _check(counts == _expect(bps=1, unwrap=1, mimo_eq=3),
            f"path L launched {counts}, expected K1 x 1, K15 x 1 and K2 x 3")
+    _check(steps > 0 and k16 == 2 * steps + 3 * passes
+           and solver.get("ssfm.fused_passes", 0.0) == passes,
+           "path L: the adaptive spans' K16 launches are not 2 a step and 3 a pass")
     _check(bool(torch.isfinite(y).all()) and y.is_cuda, "path L: non-finite or off-card output")
     disc = n_train + 500
     yy, dd = y[disc:-64], d_ref[disc:-64]
@@ -3534,7 +3688,8 @@ def run_edfa_path_l(dev, n_bits=2**18, n_channels=11, n_train=2000):
     if not all(g.is_cuda for g in got) or max(rels.values()) > EDFA_PREFIX_REL:
         failures.append(f"prefix CUDA vs CPU: {rels}")
     _check(not failures, "path L failed:\n  " + "\n  ".join(failures))
-    return dict(counts=counts, spans=spans, ber=ber, gmi=gmi, rx_s=rx_s)
+    return dict(counts=counts, spans=spans, ber=ber, gmi=gmi, rx_s=rx_s, k16_launches=k16,
+                ssfm_steps=steps, ssfm_passes=passes)
 
 
 def _edfa_receiver(sig, lo, symb_ref, cfg_tx, n_train, gen):
@@ -3890,7 +4045,9 @@ def phase_parallel_o(dev, sig_tx, cfg_ch, gen_state, llr, train_in, ffw_in, edc_
     field through ``manakov_ssf_dp`` (EDFAs, from the generator state
     ``gen_state`` the main path's SSFM started from: bit for bit with
     ``manakov_ssf``, and whether it is the main path's field ``sig_ch``
-    printed), ``manakov_ssf_pp`` (one stage, M = 1) and ``manakov_ssf_sp`` (default
+    printed), an adaptive span with the world group (K16's sums and phase
+    maximum all-reduced, as the dp route runs them: bit for bit with the
+    span's CUDA graphs), ``manakov_ssf_pp`` (one stage, M = 1) and ``manakov_ssf_sp`` (default
     halo) with ideal gain (PP_REL, SP_REL) and with EDFAs (output power
     0.8-1.6 x the input); ``sharded_edc`` (``edc_cfg``) and the matched
     filter ``pulse`` by ``sharded_fir`` on the dp output (EDC_STEP_REL on
@@ -3946,6 +4103,26 @@ def phase_parallel_o(dev, sig_tx, cfg_ch, gen_state, llr, train_in, ffw_in, edc_
         print(f"phase O dp SSFM bit-identical to the main path's field: "
               f"{bool(torch.equal(out_dp, sig_ch))}")
     _check(same and out_dp.is_cuda, "phase O: manakov_ssf_dp differs from manakov_ssf")
+    # an adaptive span with a process group (the world of one: a mesh dim of
+    # size 1 has none), the dp route's: K16's sums and phase maximum
+    # all-reduced, the step rule a launch of its own after it, in the eager
+    # loop, against the CUDA graphs' route
+    from opticommpy_torch.kernels import ssfm_pass
+    from opticommpy_torch.models import channels as tch
+
+    cfg_a = replace(cfg_ch, nlprMethod=True, trapIters=0, maxNlinPhaseRot=2e-2)
+    e_a = tch._to_pol_stacked(sig_tx, cfg_a)
+    lin_a = tch._lin_arg(e_a.shape[-1], cfg_a, e_a.dtype, e_a.device)
+    ref_a = tch._manakov_span(e_a, lin_a, cfg_a.Lspan, cfg_a)
+    k16_before = ssfm_pass.launches
+    out_a, secs["adaptive span with a group"] = _wall(
+        lambda: tch._manakov_span(e_a, lin_a, cfg_a.Lspan, cfg_a, group=dist.group.WORLD))
+    k16 = ssfm_pass.launches - k16_before
+    same_a = bool(torch.equal(out_a, ref_a))
+    print(f"phase O adaptive span with a group: bit-identical to the span without one "
+          f"{same_a}, K16 launches {k16}")
+    _check(same_a and k16 > 0, "phase O: the adaptive span with a group differs from the span "
+           "without one or ran no K16 kernel")
 
     cfg_i = replace(cfg_ch, amp="ideal")
     ref_i, _ = _wall(lambda: manakov_ssf(sig_tx, cfg_i))
@@ -4249,6 +4426,10 @@ def main():
         dict(name="unwrap", route="cuda", source="opticommpy_torch/csrc/unwrap.cu",
              replaces="no Pallas counterpart (jnp.unwrap)", launches=launches["unwrap"],
              **report["unwrap"]),
+        dict(name="ssfm_pass", route="cuda", source="opticommpy_torch/csrc/ssfm_pass.cu",
+             replaces="no Pallas counterpart (the adaptive Manakov step's elementwise XLA ops)",
+             path_l_launches=path_l["k16_launches"], path_l_steps=path_l["ssfm_steps"],
+             path_l_passes=path_l["ssfm_passes"], **report["ssfm_pass"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

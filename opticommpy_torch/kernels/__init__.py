@@ -25,6 +25,8 @@
   per signal (replaces ``kernels/volterra_pallas.py``).
 - :mod:`unwrap` — phase unwrapping by whole turns with the derotation
   fused in (no Pallas counterpart: the JAX package uses ``jnp.unwrap``).
+- :mod:`ssfm_pass` — the adaptive Manakov step's elementwise work: its
+  start and each trapezoidal pass (no Pallas counterpart: XLA fuses it).
 
 A wrapper runs the plain version for a CPU tensor, and the kernel, or
 raises, for a CUDA tensor. The kernels are built with nvcc on first use

@@ -34,6 +34,8 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {
     "bps_launch": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "bps_smem_bytes": [_I, _I, _I, _I],
@@ -64,6 +66,12 @@ _SIGNATURES = {
                              _P],
     "unwrap_scratch_len": [_I, _I],
     "unwrap_launch": [_P, _P, _I, _I, _F, _F, _F, _F, ctypes.c_double, _P, _P, _P, _P],
+    "ssfm_scratch_bytes": [],
+    "ssfm_power_launch": [_I, _P, _L, _D, _P, _P, _P, _P, _P, _D, _P, _P, _P],
+    "ssfm_step_launch": [_I, _P, _P, _P, _D, _P, _P, _P],
+    "ssfm_lin_launch": [_I, _P, _L, _I, _P, _P, _P, _D, _P],
+    "ssfm_rotate_launch": [_I, _P, _P, _P, _L, _D, _D, _P, _D, _P, _P],
+    "ssfm_converge_launch": [_I, _P, _P, _L, _I, _P, _P, _P, _P],
 }
 
 _lib = None

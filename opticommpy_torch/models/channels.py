@@ -13,7 +13,10 @@ peak nonlinear phase rotation and iterates the trapezoidal correction to
 ``tol``. The span loop takes the sign of the nonlinear operator, so
 digital backpropagation (:func:`opticommpy_torch.dsp.equalization.manakov_dbp`)
 runs the same span with ``nl_sign=-1``. ASE noise comes from one
-``torch.Generator`` whose draws follow each other span by span.
+``torch.Generator`` whose draws follow each other span by span. On a
+field on the card the step's and the trapezoidal pass's elementwise work
+runs K16 (``kernels/ssfm_pass``, ``csrc/ssfm_pass.cu``) around cuFFT; on
+the CPU its plain twins, the PyTorch ops below, run it.
 
 Under a profiler (``utils/profiling``) the solver counts, from host
 integers its loop already holds: ``ssfm.calls`` (one per call of a Manakov
@@ -21,8 +24,9 @@ channel entry point), ``ssfm.steps`` (split steps), ``ssfm.trap_iters``
 (trapezoidal passes run) and ``ssfm.host_syncs`` (the step loop's
 synchronizing reads: each convergence test, which on the adaptive path
 also reads whether another step follows, and with fixed passes the
-adaptive path's ``z < span`` test a step); digital backpropagation counts
-the same as ``dbp.*``.
+adaptive path's ``z < span`` test a step) and ``ssfm.fused_passes`` (the
+passes K16 ran, counted by its wrapper); digital backpropagation counts the
+same as ``dbp.*``.
 Its spans are host-only labels (``ssfm.span`` per span, ``ssfm.amplifier``),
 so a caller's device range around the call keeps all of its kernels.
 """
@@ -33,6 +37,7 @@ import numpy as np
 import scipy.constants as sconst
 import torch
 
+from opticommpy_torch.kernels import ssfm_pass
 from opticommpy_torch.models.config import (AWGNConfig, EDFAConfig, LinearFiberConfig,
                                             SSFMConfig)
 from opticommpy_torch.models.devices import _edfa_gain, edfa
@@ -100,15 +105,43 @@ def convergence_condition(e_fd, e_conv, group=None):
     """Normalized RMS change between trapezoidal iterations (channels.py:496).
 
     With a process ``group`` (the data-parallel SSFM), the two sums run
-    over the whole batch the group holds: one all-reduce of both.
+    over the whole batch the group holds: one all-reduce of both. On a
+    field on the card the sums are K16's (``converge_kernel``).
     """
-    num = torch.sum(torch.abs(e_fd - e_conv) ** 2)
-    den = torch.sum(torch.abs(e_conv) ** 2)
+    if _k16(e_fd):
+        sums = ssfm_pass.converge_kernel(e_fd, e_conv)
+    else:
+        sums = torch.stack(_converge_sums_plain(e_fd, e_conv))
     if group is not None:
-        sums = torch.stack([num, den])
         torch.distributed.all_reduce(sums, group=group)
-        num, den = sums[0], sums[1]
-    return torch.sqrt(num) / torch.sqrt(den)
+    return torch.sqrt(sums[0]) / torch.sqrt(sums[1])
+
+
+def _k16(e):
+    """Whether the Manakov step's elementwise work runs K16
+    (``kernels/ssfm_pass``): a field on a CUDA device, which K16 takes or
+    refuses. On the CPU the plain twins below, the PyTorch ops, run it."""
+    return e.is_cuda
+
+
+def _power_plain(e, gamma_):
+    """K16's ``power_kernel`` in PyTorch ops: the start-of-step power of the
+    (2, B, N) field and the maximum of its rotation."""
+    pch = torch.sum(torch.abs(e) ** 2, dim=0)
+    return pch, torch.max(nlin_phase_rot(e[0], e[1], pch, gamma_))
+
+
+def _rotate_plain(e_conv, e_hd, pch, hz_, gamma_, nl_sign):
+    """K16's ``rotate_kernel`` in PyTorch ops: the half-stepped field
+    ``e_hd`` rotated by the mean of the start-of-step power ``pch`` and the
+    power of the pass's estimate ``e_conv``."""
+    phi = nlin_phase_rot(e_conv[0], e_conv[1], pch, gamma_)
+    return e_hd * torch.exp((nl_sign * 1j) * (phi * hz_))
+
+
+def _converge_sums_plain(e_fd, e_conv):
+    """K16's ``converge_kernel`` sums in PyTorch ops."""
+    return torch.sum(torch.abs(e_fd - e_conv) ** 2), torch.sum(torch.abs(e_conv) ** 2)
 
 
 def _fft(x):
@@ -117,6 +150,17 @@ def _fft(x):
 
 def _ifft(x):
     return torch.fft.ifft(x, dim=-1)
+
+
+def _half_step(e, lin_op):
+    """A linear half-step, ``ifft(fft(e) * lin_op)``; on K16's route the
+    product takes the inverse FFT's 1/N (``lin_kernel``) and the inverse
+    FFT is unnormalized."""
+    if _k16(e):
+        spec = _fft(e)
+        ssfm_pass.lin_kernel(spec, lin_op)
+        return torch.fft.ifft(spec, dim=-1, norm="forward")
+    return _ifft(_fft(e) * lin_op)
 
 
 def _nl_rot(et, gamma_, hz):
@@ -188,65 +232,87 @@ def ssfm(e_in, config: SSFMConfig, generator=None):
     return out[:, 0] if squeeze else out
 
 
-def _trap_pass(e_conv, e_hd, pch, lin_op, hz_, gamma_, j_sign):
+def _trap_pass(e_conv, e_hd, pch, lin_op, hz_, gamma_, nl_sign):
     """One trapezoidal pass: the half-stepped field ``e_hd`` rotated by the
     mean of the start-of-step power ``pch`` and the power of the pass's
     estimate ``e_conv``, through the second linear half-step."""
-    phi = nlin_phase_rot(e_conv[0], e_conv[1], pch, gamma_)
-    return _ifft(_fft(e_hd * torch.exp(j_sign * (phi * hz_))) * lin_op)
+    if _k16(e_conv):
+        rot = ssfm_pass.rotate_kernel(e_conv, e_hd, pch, hz_, gamma_, nl_sign)
+    else:
+        rot = _rotate_plain(e_conv, e_hd, pch, hz_, gamma_, nl_sign)
+    return _half_step(rot, lin_op)
 
 
-def _step_start(e, z, span_end, lin_arg, cfg: SSFMConfig, group=None):
+def _converge(e_fd, e_conv, status, group=None, write=False):
+    """The pass's convergence number into ``status[0]``; ``write`` copies
+    ``e_fd`` over ``e_conv`` (K16 does both in one launch)."""
+    if _k16(e_fd) and group is None:
+        ssfm_pass.converge_kernel(e_fd, e_conv, status, write)
+        return
+    status[0] = convergence_condition(e_fd, e_conv, group)
+    if write:
+        e_conv.copy_(e_fd)
+
+
+def _step_start(e, z, span_end, lin_arg, cfg: SSFMConfig, status, group=None):
     """The adaptive step's work before its passes (channels.py:392-397):
-    (start-of-step power, step size, linear half-step operator, z after
-    the step). The step size keeps the peak nonlinear phase rotation at
-    ``maxNlinPhaseRot`` and ends the step at the span's end at the latest."""
-    pch = torch.sum(torch.abs(e) ** 2, dim=0)
-    phi_rot = nlin_phase_rot(e[0], e[1], pch, cfg.gamma)
-    phi_max = torch.max(phi_rot)
-    if group is not None:
-        torch.distributed.all_reduce(phi_max, torch.distributed.ReduceOp.MAX, group=group)
-    hz_cand = cfg.maxNlinPhaseRot / phi_max
-    hz_ = torch.minimum(hz_cand, span_end - z)
-    return pch, hz_, torch.exp(lin_arg * (hz_ / 2)), z + hz_
+    (start-of-step power, step size, linear half-step operator, the
+    half-stepped field), with ``z`` advanced by the step in place and
+    ``status[1]`` set to whether another step follows. The step size keeps
+    the peak nonlinear phase rotation at ``maxNlinPhaseRot`` and ends the
+    step at the span's end at the latest."""
+    def reduce_max(phi_max):
+        if group is not None:
+            torch.distributed.all_reduce(phi_max, torch.distributed.ReduceOp.MAX, group=group)
+
+    if _k16(e):
+        pch, _, hz_ = ssfm_pass.power_kernel(e, cfg.gamma,
+                                             (z, span_end, cfg.maxNlinPhaseRot, status),
+                                             None if group is None else reduce_max)
+        spec = _fft(e)
+        lin_op = ssfm_pass.lin_kernel(spec, lin_arg=lin_arg, hz=hz_)
+        return pch, hz_, lin_op, torch.fft.ifft(spec, dim=-1, norm="forward")
+    pch, phi_max = _power_plain(e, cfg.gamma)
+    reduce_max(phi_max)
+    hz_ = torch.minimum(cfg.maxNlinPhaseRot / phi_max, span_end - z)
+    z.add_(hz_)
+    status[1] = z < span_end
+    lin_op = torch.exp(lin_arg * (hz_ / 2))
+    return pch, hz_, lin_op, _half_step(e, lin_op)
 
 
 def _manakov_step(e, pch, lin_op, hz_, cfg: SSFMConfig, nl_sign=1.0, group=None,
-                  more=None):
+                  e_hd=None, status=None):
     """One symmetric split step with the trapezoidal nonlinear correction.
 
     ``pch`` is the start-of-step power (trapezoid anchor); ``nl_sign`` the
     sign of the nonlinear rotation (``nl_sign * 1j`` is exactly ``1j`` for
     the forward channel, so its rounding is the same as without it);
-    ``group`` as in :func:`_manakov_span`. Returns the stepped field, the
-    trapezoidal passes run (each a synchronizing read when ``trapIters`` is
-    0) and, where ``more`` (a device bool: does another step follow?) is
-    given and the passes read the device, its value, read with the last
-    pass's convergence number; None otherwise.
+    ``group`` as in :func:`_manakov_span`; ``e_hd`` the half-stepped field
+    where the caller formed it. Returns the stepped field, the trapezoidal
+    passes run (each a synchronizing read when ``trapIters`` is 0) and,
+    where ``status`` (the device's [convergence number, whether another
+    step follows], :func:`_step_start`) is given and the passes read the
+    device, whether another step follows, read with the last pass's
+    convergence number; None otherwise.
     """
-    e_hd = _ifft(_fft(e) * lin_op)
-    j_sign = nl_sign * 1j
-
-    def one_iter(e_conv):
-        return _trap_pass(e_conv, e_hd, pch, lin_op, hz_, cfg.gamma, j_sign)
-
+    if e_hd is None:
+        e_hd = _half_step(e, lin_op)
     if cfg.trapIters > 0:
         e_fd = e
         for _ in range(cfg.trapIters):
-            e_fd = one_iter(e_fd)
+            e_fd = _trap_pass(e_fd, e_hd, pch, lin_op, hz_, cfg.gamma, nl_sign)
         return e_fd, cfg.trapIters, None
-    e_fd, e_conv, n_it, go_on = e_hd, e, 0, None
-    lim = math.inf
+    read = e.real.new_zeros(2) if status is None else status
+    e_fd, e_conv, n_it, lim, go_on = e_hd, e, 0, math.inf, None
     while n_it < cfg.maxIter and lim >= cfg.tol:
-        e_fd = one_iter(e_conv)
-        lim = convergence_condition(e_fd, e_conv, group)
-        if more is None:
-            lim = float(lim)
-        else:  # one transfer: the convergence number and whether a step follows
-            lim, go_on = torch.stack([lim, more.to(lim.dtype)]).tolist()
+        e_fd = _trap_pass(e_conv, e_hd, pch, lin_op, hz_, cfg.gamma, nl_sign)
+        _converge(e_fd, e_conv, read, group)
+        # one transfer: the convergence number and whether a step follows
+        lim, go_on = read.tolist()
         e_conv = e_fd
         n_it += 1
-    return e_fd, n_it, None if go_on is None else bool(go_on)
+    return e_fd, n_it, None if status is None or go_on is None else bool(go_on)
 
 
 def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0, group=None,
@@ -258,11 +324,15 @@ def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0, group=None
     the trapezoid's convergence test then read the whole batch (a MAX and a
     SUM all-reduce), so every member steps as the unsplit batch would.
     The span's steps, trapezoidal passes and synchronizing reads go to the
-    counters ``<counters>.steps``, ``.trap_iters`` and ``.host_syncs``."""
+    counters ``<counters>.steps``, ``.trap_iters`` and ``.host_syncs``, the
+    passes K16 ran (its wrapper's count) to ``.fused_passes``."""
+    e = e.contiguous()  # K16 takes contiguous fields; a pipeline stage may pass a slice
+    k16_passes = ssfm_pass.passes
     e, steps, iters, syncs = _span_steps(e, lin_arg, span_len, cfg, nl_sign, group)
     count(counters + ".steps", steps)
     count(counters + ".trap_iters", iters)
     count(counters + ".host_syncs", syncs)
+    count(counters + ".fused_passes", ssfm_pass.passes - k16_passes)
     return e
 
 
@@ -329,13 +399,14 @@ def _span_steps(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign, group):
     real_dtype = e.real.dtype
     z = torch.zeros((), dtype=real_dtype, device=e.device)
     span_end = torch.tensor(span_len, dtype=real_dtype, device=e.device)
+    status = torch.zeros(2, dtype=real_dtype, device=e.device)
     steps = iters = syncs = 0
     go_on = span_len > 0
     while go_on:
-        pch, hz_, lin_op, z = _step_start(e, z, span_end, lin_arg, cfg, group)
-        e, n_it, go_on = _manakov_step(e, pch, lin_op, hz_, cfg, nl_sign, group, z < span_end)
+        pch, hz_, lin_op, e_hd = _step_start(e, z, span_end, lin_arg, cfg, status, group)
+        e, n_it, go_on = _manakov_step(e, pch, lin_op, hz_, cfg, nl_sign, group, e_hd, status)
         if go_on is None:  # fixed passes: read z < span alone
-            go_on = bool(z < span_end)
+            go_on = bool(status[1])
             syncs += 1
         steps += 1
         iters += n_it
@@ -351,45 +422,43 @@ def _use_graphs(e, cfg: SSFMConfig, group):
 class _StepGraphs:
     """The adaptive step loop's device work as two CUDA graphs on static
     buffers, for one field shape and solver: ``start`` (the step size, the
-    half-stepped field, z after the step and whether another step follows)
-    and ``one_pass`` (a trapezoidal pass; its convergence number with
-    whether another step follows; the pass's field written over the
-    field). A replay runs the eager loop's kernels on the same values, so
-    fields and counts are the same bits, with one launch where the eager
-    loop launches 20-25 kernels: the card, not the host, paces the loop."""
+    half-stepped field, z after the step and, into ``status[1]``, whether
+    another step follows) and ``one_pass`` (a trapezoidal pass; its
+    convergence number into ``status[0]``; the pass's field written over
+    the field). A replay runs the eager loop's kernels on the same values,
+    so fields and counts are the same bits, with one launch where the eager
+    loop launches several kernels (K16's, cuFFT's): the card, not the host,
+    paces the loop. K16's counts (``ssfm_pass.launches``, ``.passes``) take
+    the warm-up and the captures off, and each replay on (``start_k16``,
+    ``pass_k16``)."""
 
     def __init__(self, e, lin_arg, cfg: SSFMConfig, nl_sign):
         self.e, self.lin_arg = e.clone(), lin_arg.clone()
         self.z = torch.zeros((), dtype=e.real.dtype, device=e.device)
         self.span_end = torch.ones_like(self.z)
-        j_sign = nl_sign * 1j
+        self.status = torch.zeros(2, dtype=e.real.dtype, device=e.device)
 
         def start():
-            pch, hz_, lin_op, z = _step_start(self.e, self.z, self.span_end, self.lin_arg, cfg)
-            self.z.copy_(z)
-            return pch, hz_, lin_op, _ifft(_fft(self.e) * lin_op), z < self.span_end
+            self.pch, self.hz, self.lin_op, self.e_hd = _step_start(
+                self.e, self.z, self.span_end, self.lin_arg, cfg, self.status)
 
         def one_pass():
             e_fd = _trap_pass(self.e, self.e_hd, self.pch, self.lin_op, self.hz, cfg.gamma,
-                              j_sign)
-            lim = convergence_condition(e_fd, self.e)
-            out = torch.stack([lim, self.more.to(lim.dtype)])
-            self.e.copy_(e_fd)
-            return out
+                              nl_sign)
+            _converge(e_fd, self.e, self.status, write=True)
 
         stream = torch.cuda.current_stream(e.device)
         side = torch.cuda.Stream(e.device)
         side.wait_stream(stream)
-        with torch.cuda.stream(side):  # cuFFT plans and the allocator's blocks
-            self.pch, self.hz, self.lin_op, self.e_hd, self.more = start()
-            one_pass()
+        with torch.cuda.stream(side):  # cuFFT plans, K16's scratch, the allocator's blocks
+            ssfm_pass.uncounted(lambda: (start(), one_pass()))
         stream.wait_stream(side)
         pool = torch.cuda.graph_pool_handle()
         self.start, self.one_pass = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.start, pool=pool):
-            self.pch, self.hz, self.lin_op, self.e_hd, self.more = start()
+            _, self.start_k16 = ssfm_pass.uncounted(start)
         with torch.cuda.graph(self.one_pass, pool=pool):
-            self.out = one_pass()
+            _, self.pass_k16 = ssfm_pass.uncounted(one_pass)
 
 
 _GRAPHS = {}
@@ -421,9 +490,11 @@ def _span_steps_graphed(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign):
         n_it, lim = 0, math.inf
         while n_it < cfg.maxIter and lim >= cfg.tol:
             g.one_pass.replay()
-            lim, go_on = g.out.tolist()
+            lim, go_on = g.status.tolist()
             n_it += 1
         steps, iters = steps + 1, iters + n_it
+    ssfm_pass.replayed(g.start_k16, steps)
+    ssfm_pass.replayed(g.pass_k16, iters)
     return g.e.clone(), steps, iters, iters
 
 

@@ -22,8 +22,8 @@ and ``ssfm.amplifier*`` per span of the Manakov solver. Counters, added by
 :func:`~opticommpy_torch.comm.fec.decode_ldpc`: ``fec.codewords`` and
 ``fec.codeword_iters`` (the iterations each codeword ran, summed); by the
 Manakov solver (:func:`~opticommpy_torch.models.channels.manakov_ssf`):
-``ssfm.calls``, ``ssfm.steps``, ``ssfm.trap_iters`` and ``ssfm.host_syncs``
-(``dbp.*`` in digital backpropagation).
+``ssfm.calls``, ``ssfm.steps``, ``ssfm.trap_iters``, ``ssfm.host_syncs`` and
+``ssfm.fused_passes`` (``dbp.*`` in digital backpropagation).
 """
 
 import os
